@@ -1,41 +1,54 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (`structuredetector_tpu_torch`).
 
-    python3 chip_smoke.py [--load_model model.pth]
+    python3 chip_smoke.py [--load_model model.pth|model.msgpack]
 
 Runs on one NVIDIA GPU from the root of a checkout and imports nothing
 of JAX or of the JAX package. Phases, one JSON line each:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: compiles every kernel of the serving path from csrc/ (nvcc,
-   sm_90a, one process per source, in parallel);
-3. kernels: holds each kernel bit-exact against its plain PyTorch
-   version at the serving shapes and on edge cases, and times kernel,
-   plain version and yardstick with CUDA events;
-4. serve (the main path): a full-width SDNet (resnet34, fpn_depth 128,
-   512x512, bf16, labels.json) behind the port's micro-batching HTTP
-   server answers concurrent PNG POSTs; the Decoder path (kernel A) and
-   the serving decode (kernel B) must give identical detections from one
-   forward, the kernel-fronted decode must equal the plain-fronted one,
-   and both kernels' launch counters must rise. Then it times batch-32
-   throughput and reports the request latency;
-5. reference: a small fp32 model on the card agrees with the same model
+2. build: compiles every kernel from csrc/ (nvcc, sm_90a, one process
+   per source, in parallel);
+3. kernels: holds each kernel (A sigmoid_nms, B sigmoid_nms_topk, C
+   sigmoid_nms_topk_rowmax) bit-exact against its plain PyTorch version
+   at the main paths' shapes and on edge cases, and times kernel, plain
+   version and yardstick with CUDA events;
+4. serve (main path of kernels A and B): a full-width SDNet (resnet34,
+   fpn_depth 128, 512x512, bf16, labels.json) behind the port's
+   micro-batching HTTP server answers concurrent PNG POSTs; the Decoder
+   path (kernel A) and the serving decode (kernel B) must give identical
+   detections from one forward, and both kernels' launch counters must
+   rise. Then it times batch-32 throughput and the request latency;
+5. topk_variants (main path of kernel C): the port's variant shootout
+   (`tools/bench_topk_variants.py`) at batch 128, both variants
+   bit-exact first;
+6. evaluate_detect (main path of kernels A and B): the same full-width
+   model, written as a .msgpack by the port, runs `cli.detect` over 64
+   PNGs of mixed sizes at `--eval_batch_size 32` (kernel B), then
+   `cli.evaluate` on detect's own predictions with `--conf_sweep`
+   (kernel A); anchor F1 must be at least 0.99 for every label, the
+   sweep's first summary must equal a run without the sweep, and both
+   kernels' launch counters must rise. Reports images/s of both;
+7. reference: a small fp32 model on the card agrees with the same model
    on the CPU.
 
-Then the `{"kernels": [...]}` line, the nvidia-smi line, and last
-`{"ok": true, "device": {...}}`. Any failure raises and exits non-zero;
-without CUDA, or without the package beside this file, it exits 2 and
-prints no result.
+Each main path is driven with the launch counts set to 0 just before it
+and read just after. Then the `{"kernels": [...]}` line, the nvidia-smi
+line, and last `{"ok": true, "device": {...}}`. Any failure raises and
+exits non-zero; without CUDA, or without the package beside this file,
+it exits 2 and prints no result.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import io
 import json
-import subprocess
+import os
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -58,34 +71,12 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def nvidia_smi() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
 def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
-    """Mean device milliseconds of `fn()` over `iters` calls, CUDA events.
+    """Mean device milliseconds of `fn()`, free of host launch overhead
+    (`tools.timing.device_ms`)."""
+    from structuredetector_tpu_torch.tools.timing import device_ms
 
-    The stream first runs a ~50 ms sleep kernel, so all `iters` calls are
-    queued before the start event runs: the time is the device's, free of
-    the host's launch overhead (the work here is host-bound otherwise)."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    torch.cuda._sleep(100_000_000)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+    return device_ms(fn, iters=iters, warmup=warmup)
 
 
 def bound_ms(n_bytes: float, n_ops: float):
@@ -134,28 +125,33 @@ def phase_kernels(card: str) -> dict:
         if not torch.equal(got, want):
             raise AssertionError(f"sigmoid_nms differs from its plain version at {shape}")
 
-    # kernel B: serving shapes (anchors 2 x 32, parts 32), a plane count
-    # not a multiple of 8, an all-equal plane, non-square planes, and a
-    # 256x256 plane (global-scratch path)
+    # kernels B ("rounds") and C ("onehot"): serving shapes (anchors 2 x 32,
+    # parts 32), a plane count not a multiple of 8, an all-equal plane,
+    # non-square planes, a 256x256 plane (global-scratch path) and k = H * W
+    # (every row spent)
     cases = [(logits(64, 128, 128), 20), (logits(32, 128, 128), 40),
              (logits(100, 128, 128), 20), (torch.zeros((2, 128, 128), device="cuda"), 40),
-             (logits(3, 40, 72), 9), (logits(4, 256, 256), 40)]
-    err_b = 0.0
+             (logits(3, 40, 72), 9), (logits(4, 256, 256), 40), (logits(2, 40, 72), 40 * 72)]
+    err = {"rounds": 0.0, "onehot": 0.0}
     for planes, k in cases:
-        got, want = sigmoid_nms_topk(planes, k), sigmoid_nms_topk_reference(planes, k)
-        for g, w in zip(got, want):
-            err_b = max(err_b, max_abs_diff(g, w))
-            if not torch.equal(g, w):
-                raise AssertionError(
-                    f"sigmoid_nms_topk differs from its plain version at "
-                    f"{tuple(planes.shape)}, k={k}")
-    flat_inds = sigmoid_nms_topk(cases[3][0], 40)[1]
-    if flat_inds.cpu().tolist() != [list(range(40))] * 2:
-        raise AssertionError("all-equal plane: ties must go to ascending flat index")
+        want = sigmoid_nms_topk_reference(planes, k)
+        for variant in err:
+            got = sigmoid_nms_topk(planes, k, variant=variant)
+            for g, w in zip(got, want):
+                err[variant] = max(err[variant], max_abs_diff(g, w))
+                if not torch.equal(g, w):
+                    raise AssertionError(
+                        f"sigmoid_nms_topk ({variant}) differs from its plain version at "
+                        f"{tuple(planes.shape)}, k={k}")
+    for variant in err:
+        flat_inds = sigmoid_nms_topk(cases[3][0], 40, variant=variant)[1]
+        if flat_inds.cpu().tolist() != [list(range(40))] * 2:
+            raise AssertionError(
+                f"all-equal plane ({variant}): ties must go to ascending flat index")
 
     # timings at the main path's per-batch work (batch 32, 128x128 grid):
-    # kernel A runs on anchors (32, 2) and parts (32, 1); kernel B on the
-    # 64 anchor planes (k=20) and the 32 part planes (k=40)
+    # kernel A runs on anchors (32, 2) and parts (32, 1); kernels B and C
+    # on the 64 anchor planes (k=20) and the 32 part planes (k=40)
     anchors, parts = logits(32, 2, 128, 128), logits(32, 1, 128, 128)
     a_planes, p_planes = anchors.reshape(64, 128, 128), parts.reshape(32, 128, 128)
     pixels = anchors.numel() + parts.numel()
@@ -164,33 +160,45 @@ def phase_kernels(card: str) -> dict:
     a_plain = time_ms(lambda: (sigmoid_nms_reference(anchors), sigmoid_nms_reference(parts)))
     a_bound, a_by = bound_ms(2 * 4 * pixels, FRONT_OPS_PER_PIXEL * pixels)
 
-    b_ms = time_ms(lambda: (sigmoid_nms_topk(a_planes, 20), sigmoid_nms_topk(p_planes, 40)))
-    b_plain = time_ms(lambda: (sigmoid_nms_topk_reference(a_planes, 20),
-                               sigmoid_nms_topk_reference(p_planes, 40)))
+    # B and C compute one function: one bound, one plain version, one
+    # partial yardstick (torch.topk over the already suppressed planes,
+    # selection only; no single PyTorch call computes the whole function)
     out_bytes = (64 * 20 + 32 * 40) * 8
-    b_bound, b_by = bound_ms(4 * pixels + out_bytes,
-                             (FRONT_OPS_PER_PIXEL + SELECT_OPS_PER_PIXEL) * pixels)
-    # kernel B against k on the anchor planes: t(k) ~ t0 + k * (a round)
-    b_by_k = {k: time_ms(lambda k=k: sigmoid_nms_topk(a_planes, k)) for k in (1, 20, 40)}
-    # partial yardstick: torch.topk over the already suppressed planes
-    # (selection only; no single PyTorch call computes the whole function)
+    topk_bound, topk_by = bound_ms(4 * pixels + out_bytes,
+                                   (FRONT_OPS_PER_PIXEL + SELECT_OPS_PER_PIXEL) * pixels)
+    topk_plain = time_ms(lambda: (sigmoid_nms_topk_reference(a_planes, 20),
+                                  sigmoid_nms_topk_reference(p_planes, 40)))
     sup_a = sigmoid_nms_reference(a_planes).reshape(64, -1)
     sup_p = sigmoid_nms_reference(p_planes).reshape(32, -1)
     topk_partial = time_ms(lambda: (torch.topk(sup_a, 20), torch.topk(sup_p, 40)))
+    topk = {}
+    for variant in ("rounds", "onehot"):  # in turns: B, C, C, B
+        topk[variant] = [time_ms(lambda v=variant: (sigmoid_nms_topk(a_planes, 20, variant=v),
+                                                    sigmoid_nms_topk(p_planes, 40, variant=v)))]
+    for variant in ("onehot", "rounds"):
+        topk[variant].append(time_ms(lambda v=variant: (
+            sigmoid_nms_topk(a_planes, 20, variant=v), sigmoid_nms_topk(p_planes, 40, variant=v))))
+    # t(k) on the anchor planes: t0 (load, sigmoid, NMS) + k rounds
+    by_k = {v: {k: time_ms(lambda k=k, v=v: sigmoid_nms_topk(a_planes, k, variant=v))
+                for k in (1, 20, 40)} for v in ("rounds", "onehot")}
+
+    def topk_entry(variant):
+        return {"max_abs_err": err[variant], "ms": sum(topk[variant]) / 2,
+                "ms_runs": topk[variant], "plain_ms": topk_plain, "bound_ms": topk_bound,
+                "bound_by": topk_by, "library_ms": None, "topk_partial_ms": topk_partial,
+                "ms_by_k_64_planes": by_k[variant]}
 
     result = {
         "sigmoid_nms": {"max_abs_err": err_a, "ms": a_ms, "plain_ms": a_plain,
                         "bound_ms": a_bound, "bound_by": a_by, "library_ms": None},
-        "sigmoid_nms_topk": {"max_abs_err": err_b, "ms": b_ms, "plain_ms": b_plain,
-                             "bound_ms": b_bound, "bound_by": b_by, "library_ms": None,
-                             "topk_partial_ms": topk_partial,
-                             "ms_by_k_64_planes": b_by_k},
+        "sigmoid_nms_topk": topk_entry("rounds"),
+        "sigmoid_nms_topk_rowmax": topk_entry("onehot"),
     }
     emit({"phase": "kernels", "card": card, "bit_exact": True,
           "timed_work": "one served batch of 32 at 512x512: anchors (32,2,128,128) + "
                         "parts (32,1,128,128); warm L2, CUDA events, mean of 50",
           "topk_partial_ms_is": "torch.topk over the suppressed planes only (partial)",
-          **{k: v for k, v in result.items()}})
+          **result})
     return result
 
 
@@ -224,7 +232,11 @@ def phase_serve(card: str, load_model) -> dict:
         decode_feature_maps_planes,
         split_head_output,
     )
-    from structuredetector_tpu_torch.ops.kernels import sigmoid_nms, sigmoid_nms_topk
+    from structuredetector_tpu_torch.ops.kernels import (
+        launch_counts,
+        reset_launch_counts,
+        sigmoid_nms,
+    )
     from structuredetector_tpu_torch.predictor import Predictor, PreparedImage
     from structuredetector_tpu_torch.serve import make_server, measure_device_ms_per_img
 
@@ -248,8 +260,7 @@ def phase_serve(card: str, load_model) -> dict:
     torch.cuda.synchronize()
 
     # --- the main path: counts set to 0 just before, read just after
-    sigmoid_nms.launches = 0
-    sigmoid_nms_topk.launches = 0
+    reset_launch_counts()
     server, batcher = make_server(fast, "127.0.0.1", 0, max_batch=32, window_ms=20.0,
                                   submit_timeout_s=120.0)
     port = server.server_address[1]
@@ -298,9 +309,8 @@ def phase_serve(card: str, load_model) -> dict:
     if anns_fast != anns_slow:
         raise AssertionError("Predictor(fast_path=False) and the fast path disagree")
     torch.cuda.synchronize()
-    launches = {"sigmoid_nms": sigmoid_nms.launches,
-                "sigmoid_nms_topk": sigmoid_nms_topk.launches}
-    if min(launches.values()) == 0:
+    launches = launch_counts()
+    if not launches["sigmoid_nms"] or not launches["sigmoid_nms_topk"]:
         raise AssertionError(f"a kernel of the path was not launched: {launches}")
     # --- end of the main path
 
@@ -362,8 +372,9 @@ def phase_serve(card: str, load_model) -> dict:
           "decode_kernel_a_path_ms_batch32": dec_a_ms,
           "bf16_vs_fp32_max_rel": bf16_rel, "objects_in_batch32": objects,
           "launches": launches, "paths_identical": True})
-    # bf16 keeps 8 bits of mantissa through 40 layers: 0.039 measured on
-    # an H100 with the seeded weights; the bar is twice that
+    # bf16 keeps 8 bits of mantissa through 40 layers: 0.015 measured on
+    # an NVIDIA H100 80GB HBM3 (700 W) with the seeded weights, 0.039 with
+    # the earlier fan-out init; the bar is 0.08
     if bf16_rel > 0.08:
         raise AssertionError(f"bf16 head departs from fp32 by {bf16_rel:.3f} of scale")
     return launches
@@ -400,10 +411,177 @@ def phase_reference(card: str) -> None:
           "head_max_rel_err": head_err, "decode": "card kernels == CPU plain versions"})
 
 
+def phase_topk_variants(card: str) -> dict:
+    """Kernel C's main path: the port's variant shootout at batch 128.
+    Returns the launch counts of its run."""
+    from structuredetector_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from structuredetector_tpu_torch.tools import bench_topk_variants
+
+    reset_launch_counts()
+    result = bench_topk_variants.run()
+    launches = launch_counts()
+    if not launches["sigmoid_nms_topk_rowmax"]:
+        raise AssertionError(f"the shootout did not launch kernel C: {launches}")
+    emit({"phase": "topk_variants", "card": card, **result, "launches": launches})
+    return launches
+
+
+def _write_pngs(directory: Path, n: int, seed: int) -> None:
+    """`n` lossless PNGs of mixed sizes (640x480, 800x600, 512x512,
+    333x517): coarse noise upscaled, so the files are small and quick to
+    write."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    sizes = [(640, 480), (800, 600), (512, 512), (333, 517)]
+    for i in range(n):
+        w, h = sizes[i % len(sizes)]
+        coarse = rng.integers(0, 256, (h // 16 + 1, w // 16 + 1, 3), np.uint8)
+        Image.fromarray(coarse).resize((w, h), Image.BILINEAR).save(directory / f"img_{i:03d}.png")
+
+
+def _sub_cell_offsets(model, cfg) -> None:
+    """A trained head regresses offsets within a grid cell; a seeded one
+    regresses several cells, which puts anchors near the border outside
+    the image, where evaluate clips the ground truth to the image and
+    the match radius (5 % of the image's short side) no longer reaches.
+    Scale the seeded head's two offset rows down into a trained model's
+    range."""
+    import torch
+
+    rows = slice(cfg.n_labels + cfg.n_parts, cfg.n_labels + cfg.n_parts + 2)
+    with torch.no_grad():
+        model.head.conv.weight[rows] *= 0.1
+        model.head.conv.bias[rows] = 0.0
+
+
+def _counts(evaluator) -> dict:
+    """(tp, npos, ndet) of every label of every metric family."""
+    families = ("anchor_eval", "part_eval", "csi_eval", "classification_eval")
+    return {fam: {label: (e.tp, e.npos, e.ndet) for label, e in getattr(evaluator, fam).items()}
+            for fam in families}
+
+
+@contextlib.contextmanager
+def _cwd(path: Path):
+    old = Path.cwd()
+    os.chdir(path)
+    try:
+        yield
+    finally:
+        os.chdir(old)
+
+
+def phase_evaluate_detect(card: str, load_model) -> dict:
+    """The evaluate/detect main path at full width; returns the launch
+    counts of its run."""
+    import numpy as np
+    import torch
+
+    from structuredetector_tpu_torch.cli import detect, evaluate
+    from structuredetector_tpu_torch.config import Config
+    from structuredetector_tpu_torch.models.weights import save_msgpack
+    from structuredetector_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from structuredetector_tpu_torch.predictor import Predictor, PreparedImage
+
+    n_images, batch, conf = 64, 32, 0.1
+    sweep = (0.1, 0.3, 0.5)
+    with tempfile.TemporaryDirectory(prefix="sdnet-smoke-") as tmp:
+        tmp = Path(tmp)
+        images = tmp / "images"
+        images.mkdir()
+        _write_pngs(images, n_images, seed=926354916)
+        cfg = Config(labels_path=ROOT / "labels.json", pretrained_model=load_model).finalize()
+        # the seeded model, written by the port as the JAX package's
+        # save_params would, then loaded back by the CLIs
+        warm = Predictor(cfg, device="cuda")
+        if load_model is None:
+            _sub_cell_offsets(warm.model, cfg)
+        ckpt = save_msgpack(warm.model, tmp / "model_best_csi.msgpack")
+        # cuDNN picks its algorithms per shape once a process: warm both
+        # feeds at batch 32 so the timed runs below measure steady state
+        feed = np.zeros((cfg.height, cfg.width, 3), np.uint8)
+        warm.predict_batch([PreparedImage(feed, (cfg.width, cfg.height))] * batch)
+        with torch.inference_mode():
+            warm.model(torch.zeros((batch, 3, cfg.height, cfg.width), device=warm.device))
+        torch.cuda.synchronize()
+        del warm
+
+        common = ["--labels", str(ROOT / "labels.json"), "--load_model", str(ckpt),
+                  "--eval_batch_size", str(batch), "--num_workers", "4"]
+        # --- the main path: counts set to 0 just before, read just after
+        reset_launch_counts()
+        with _cwd(tmp):
+            t0 = time.perf_counter()
+            out_dir = detect.main(["--valid_dir", str(images), "--conf_threshold", str(conf),
+                                   *common])
+            torch.cuda.synchronize()
+            detect_s = time.perf_counter() - t0
+        predictions = sorted((tmp / out_dir).glob("*.json"))
+        t0 = time.perf_counter()
+        swept = evaluate.main(["--valid_dir", str(tmp / out_dir), "--conf_sweep",
+                               ",".join(map(str, sweep)), "--save_summary",
+                               str(tmp / "sweep.json"), *common])
+        torch.cuda.synchronize()
+        sweep_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        single_ev = evaluate.main(["--valid_dir", str(tmp / out_dir), "--conf_threshold",
+                                   str(conf), "--save_summary", str(tmp / "one.json"), *common])
+        torch.cuda.synchronize()
+        evaluate_s = time.perf_counter() - t0
+        launches = launch_counts()
+        # --- end of the main path
+        summaries = json.loads((tmp / "sweep.json").read_text())
+        single = json.loads((tmp / "one.json").read_text())
+
+    if len(predictions) != n_images:
+        raise AssertionError(f"detect wrote {len(predictions)} predictions for {n_images} images")
+    if not launches["sigmoid_nms"] or not launches["sigmoid_nms_topk"]:
+        raise AssertionError(f"a kernel of the path was not launched: {launches}")
+    if set(summaries) != {f"{t:g}" for t in sweep}:
+        raise AssertionError(f"--conf_sweep {sweep} gave summaries {sorted(summaries)}")
+    first = summaries[f"{sweep[0]:g}"]
+    if set(first) != set(single):
+        raise AssertionError("the sweep's first summary has other keys than a single run")
+    sweep_vs_single = max(abs(first[k] - single[k]) for k in single)
+    ev = swept[sweep[0]]
+    if _counts(ev) != _counts(single_ev[conf]):
+        raise AssertionError("the sweep's first counters differ from a run without the sweep")
+    objects = sum(e.npos for _, e in ev.anchor_eval.items())
+    if objects < n_images:
+        raise AssertionError(f"only {objects} ground-truth objects in {n_images} images")
+    f1 = {label: e.f1_score for label, e in ev.anchor_eval.items() if e.npos or e.ndet}
+    emit({"phase": "evaluate_detect", "card": card,
+          "model": f"SDNet resnet34 fpn_depth={cfg.fpn_depth} {cfg.width}x{cfg.height} "
+                   f"{'bf16' if cfg.use_amp else 'fp32'}, "
+                   f"{'weights ' + str(load_model) if load_model else 'seeded init'}",
+          "images": n_images, "eval_batch_size": batch, "conf_threshold": conf,
+          "conf_sweep": list(sweep), "gt_objects": objects,
+          "anchor_f1_own_predictions": f1,
+          "anchor_f1_by_threshold": {t: s["anchor/f1_total"] for t, s in summaries.items()},
+          "sweep_first_vs_single_max_abs_diff": sweep_vs_single,
+          "detect_img_per_s_batch32": n_images / detect_s,
+          "evaluate_img_per_s_batch32": n_images / evaluate_s,
+          "evaluate_sweep3_img_per_s_batch32": n_images / sweep_s,
+          "timing": "host clock; detect includes PNG decode, resize, JSON and overlay "
+                    "writes; evaluate includes loading and metric accumulation",
+          "launches": launches})
+    # detect normalizes on the card from uint8, evaluate on the host in
+    # float32; under bf16 a near-tied 20th peak may swap
+    low = {label: v for label, v in f1.items() if v < 0.99}
+    if low or not f1:
+        raise AssertionError(f"anchor F1 on the model's own predictions below 0.99: {f1}")
+    if sweep_vs_single > 1e-6:
+        raise AssertionError(
+            f"the sweep's first summary departs from a single run by {sweep_vs_single}")
+    return launches
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--load_model", type=Path, default=None,
-                   help="reference-layout .pth to serve instead of the seeded init")
+                   help="a .pth or .msgpack to run instead of the seeded init")
     args = p.parse_args(argv)
 
     import torch
@@ -415,25 +593,34 @@ def main(argv=None) -> int:
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    from structuredetector_tpu_torch.tools.timing import card as query_card
 
     t_start = time.perf_counter()
-    card = nvidia_smi()
+    card = query_card()
     emit({"phase": "device", "nvidia_smi": card, "torch": torch.__version__,
           "cuda": torch.version.cuda, "kind": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count()})
     phase_build()
     kernels = phase_kernels(card)
-    launches = phase_serve(card, args.load_model)
+    by_path = {"serve": phase_serve(card, args.load_model),
+               "topk_variants": phase_topk_variants(card),
+               "evaluate_detect": phase_evaluate_detect(card, args.load_model)}
     phase_reference(card)
 
-    sources = {"sigmoid_nms": ("structuredetector_tpu_torch/csrc/sigmoid_nms.cu",
-                               "structuredetector_tpu/ops/pallas/nms.py:35"),
-               "sigmoid_nms_topk": ("structuredetector_tpu_torch/csrc/sigmoid_nms_topk.cu",
-                                    "structuredetector_tpu/ops/pallas/topk.py:62")}
+    sources = {
+        "sigmoid_nms": ("structuredetector_tpu_torch/csrc/sigmoid_nms.cu",
+                        "structuredetector_tpu/ops/pallas/nms.py:35"),
+        "sigmoid_nms_topk": ("structuredetector_tpu_torch/csrc/sigmoid_nms_topk.cu",
+                             "structuredetector_tpu/ops/pallas/topk.py:62"),
+        "sigmoid_nms_topk_rowmax": ("structuredetector_tpu_torch/csrc/sigmoid_nms_topk_rowmax.cu",
+                                    "structuredetector_tpu/ops/pallas/topk.py:116"),
+    }
+    extra = ("topk_partial_ms", "ms_by_k_64_planes", "ms_runs")
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
-         "launches": launches[name], **{k: v for k, v in kernels[name].items()
-                                        if k not in ("topk_partial_ms", "ms_by_k_64_planes")}}
+         "launches": sum(counts[name] for counts in by_path.values()),
+         "launches_by_path": {path: counts[name] for path, counts in by_path.items()},
+         **{k: v for k, v in kernels[name].items() if k not in extra}}
         for name, (src, replaces) in sources.items()
     ]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})

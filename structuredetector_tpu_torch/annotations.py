@@ -1,8 +1,10 @@
 """Annotation data model and JSON interchange format.
 
-The port's own copy of `structuredetector_tpu/annotations.py` (the
-classes the serving path builds): `Keypoint`, `Box`, `Object` and
-`ImageAnnotation`, with the reference's public JSON schema:
+The port's own copy of `structuredetector_tpu/annotations.py`:
+`Keypoint`, `Box`, `Object` and `ImageAnnotation`, with the reference's
+public JSON schema, and the helpers evaluate and detect use
+(`clip_annotation`, `files_with_extension`, `dict_grouping`,
+`get_unique_color_map`):
 
 ```json
 {
@@ -25,7 +27,7 @@ import copy
 import json
 import math
 from pathlib import Path
-from typing import List, Optional, Tuple
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 
 class Keypoint:
@@ -328,3 +330,94 @@ class ImageAnnotation:
             f"ImageAnnotation(name: {self.image_name}, objects: {self.objects}, "
             f"img_size: {self.img_size})"
         )
+
+
+# --- host-side helpers -------------------------------------------------
+
+
+def clip_annotation(annotation: ImageAnnotation, img_size) -> ImageAnnotation:
+    """Clip all coordinates into [0, size-1] (mutates, like the reference)."""
+    w, h = img_size
+
+    def _clip(v, hi):
+        return min(max(v, 0), hi)
+
+    for obj in annotation.objects:
+        obj.x = _clip(obj.x, w - 1)
+        obj.y = _clip(obj.y, h - 1)
+        for p in obj.parts:
+            p.x = _clip(p.x, w - 1)
+            p.y = _clip(p.y, h - 1)
+        if obj.box is not None:
+            obj.box.x_min = _clip(obj.box.x_min, w - 1)
+            obj.box.x_max = _clip(obj.box.x_max, w - 1)
+            obj.box.y_min = _clip(obj.box.y_min, h - 1)
+            obj.box.y_max = _clip(obj.box.y_max, h - 1)
+    return annotation
+
+
+def files_with_extension(folder, extension: str) -> List[Path]:
+    return [f for f in Path(folder).iterdir() if f.suffix == extension]
+
+
+def dict_grouping(iterable: Iterable, key):
+    from collections import defaultdict
+
+    out = defaultdict(list)
+    for el in iterable:
+        out[key(el)].append(el)
+    return out
+
+
+_M64 = (1 << 64) - 1
+_P1, _P2, _P3 = 11400714785074694791, 14029467366897019727, 1609587929392839161
+_P4, _P5 = 9650029242287828579, 2870177450012600261
+
+
+def _rotl(x: int, r: int) -> int:
+    return ((x << r) | (x >> (64 - r))) & _M64
+
+
+def _xxh64_round(acc: int, lane: int) -> int:
+    return _rotl((acc + lane * _P2) & _M64, 31) * _P1 & _M64
+
+
+def xxh64_digest(data: bytes, seed: int = 0) -> bytes:
+    """XXH64 of `data`, big-endian, as `xxhash.xxh64_digest` gives it: a
+    plain-Python copy for label colours, so the port needs no xxhash."""
+    n, i = len(data), 0
+    if n >= 32:
+        v = [(seed + _P1 + _P2) & _M64, (seed + _P2) & _M64, seed, (seed - _P1) & _M64]
+        while i + 32 <= n:
+            for j in range(4):
+                v[j] = _xxh64_round(v[j], int.from_bytes(data[i : i + 8], "little"))
+                i += 8
+        h = (_rotl(v[0], 1) + _rotl(v[1], 7) + _rotl(v[2], 12) + _rotl(v[3], 18)) & _M64
+        for lane in v:
+            h = ((h ^ _xxh64_round(0, lane)) * _P1 + _P4) & _M64
+    else:
+        h = (seed + _P5) & _M64
+    h = (h + n) & _M64
+    while i + 8 <= n:
+        h ^= _xxh64_round(0, int.from_bytes(data[i : i + 8], "little"))
+        h = (_rotl(h, 27) * _P1 + _P4) & _M64
+        i += 8
+    if i + 4 <= n:
+        h ^= int.from_bytes(data[i : i + 4], "little") * _P1 & _M64
+        h = (_rotl(h, 23) * _P2 + _P3) & _M64
+        i += 4
+    for byte in data[i:]:
+        h ^= byte * _P5 & _M64
+        h = _rotl(h, 11) * _P1 & _M64
+    h ^= h >> 33
+    h = h * _P2 & _M64
+    h ^= h >> 29
+    h = h * _P3 & _M64
+    h ^= h >> 32
+    return h.to_bytes(8, "big")
+
+
+def get_unique_color_map(labels: Sequence[str]) -> Dict[str, tuple]:
+    """Deterministic per-label RGB from xxhash64, as the reference
+    (utils.py:477-479)."""
+    return {n: tuple(xxh64_digest(n.encode())[:3]) for n in labels}

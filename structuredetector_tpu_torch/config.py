@@ -4,8 +4,9 @@ The port's own copy of `structuredetector_tpu/config.py`: the
 reference's flag names, defaults and invariants
 (`/root/reference/src/sdnet/utils/args.py`), so a reference command
 line works unchanged. The JAX package's TPU knobs (mesh axes, XLA
-caches, native IO, int8, alternate backbones and heads) are not part
-of this port yet; the device is a `--device` flag of each CLI.
+caches, int8, alternate backbones and heads) are not part of this port
+yet; `--native_io`/`--no_native_io` are accepted and ignored (the port
+decodes images with PIL). The device is a `--device` flag of each CLI.
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ from pathlib import Path
 from typing import Dict, Optional, Tuple
 
 import torch
+
+from .annotations import get_unique_color_map
 
 DEFAULT_SEED = 926354916  # reference args.py:257
 
@@ -58,6 +61,11 @@ class Config:
     decoder_dist_thresh: float = 0.1
     csi_threshold: float = 0.75
     csv_path: Optional[Path] = None
+    summary_path: Optional[Path] = None
+    # evaluate only: re-decode the same forward outputs at each of these
+    # confidence thresholds (one pass over the dataset, one metric table
+    # per threshold)
+    conf_sweep: Optional[Tuple[float, ...]] = None
 
     # bf16 convolutions (autocast) with f32 parameters; False = fp32 with
     # TF32 off
@@ -65,6 +73,12 @@ class Config:
 
     seed: int = DEFAULT_SEED
     num_workers: int = -1  # -1 = auto, min(cpu_count, 4) like the reference
+    # images per device batch in evaluate and detect (metrics identical)
+    eval_batch_size: int = 1
+    # detect: sliding-window tiles at native resolution
+    # (Predictor.predict_tiled) instead of downscaling the image
+    tiled: bool = False
+    tile_overlap: float = 0.25  # fraction of shared border between tiles
 
     # label maps, filled by `finalize()`
     labels: Dict[str, int] = dataclasses.field(default_factory=dict)
@@ -98,6 +112,14 @@ class Config:
         return {v: k for k, v in self.parts.items()}
 
     @property
+    def label_color_map(self) -> Dict[str, tuple]:
+        return get_unique_color_map(self.labels)
+
+    @property
+    def part_color_map(self) -> Dict[str, tuple]:
+        return get_unique_color_map(self.parts)
+
+    @property
     def compute_dtype(self) -> torch.dtype:
         return torch.bfloat16 if self.use_amp else torch.float32
 
@@ -127,7 +149,14 @@ class Config:
              "decoder_dist_thresh must be in [0, 1]"),
             (0 <= self.csi_threshold <= 1, "csi_threshold must be in [0, 1]"),
             (0 < self.sigma_gauss <= 1, "sigma_gauss must be in (0, 1]"),
+            (self.eval_batch_size > 0, "eval_batch_size must be > 0"),
         ]
+        if self.conf_sweep is not None:
+            checks += [
+                (len(self.conf_sweep) > 0, "--conf_sweep needs at least one threshold"),
+                (all(0 <= t <= 1 for t in self.conf_sweep),
+                 f"--conf_sweep thresholds must be in [0, 1]: {self.conf_sweep}"),
+            ]
         for ok, message in checks:
             if not ok:
                 raise ValueError(message)
@@ -228,6 +257,12 @@ def build_parser(parser: Optional[argparse.ArgumentParser] = None) -> argparse.A
     p.add_argument("--csi_threshold", type=float, default=d.csi_threshold,
                    help="CSI threshold for evaluation, in [0, 1].")
     p.add_argument("--save_csv_eval", dest="csv_path", type=Path, default=None)
+    p.add_argument("--save_summary", dest="summary_path", type=Path, default=None,
+                   help="Write the flat metric summary (scalar_summary) as JSON.")
+    p.add_argument("--conf_sweep", type=str, default=None,
+                   help="evaluate only: comma-separated confidence thresholds "
+                        "(e.g. 0.2,0.3,0.4); the dataset is forwarded once and "
+                        "re-decoded per threshold, one metric row each.")
     p.add_argument("--amp", action="store_true", dest="amp_flag",
                    help="Mixed precision (bf16 convolutions) — the default, so "
                         "this flag confirms it; conflicts with --no_amp.")
@@ -236,6 +271,20 @@ def build_parser(parser: Optional[argparse.ArgumentParser] = None) -> argparse.A
     p.add_argument("--seed", type=int, default=d.seed)
     p.add_argument("--num_workers", type=int, default=d.num_workers,
                    help="Host-side data prefetch threads.")
+    p.add_argument("--native_io", dest="native_io", action="store_true", default=True,
+                   help="Accepted for the JAX package's command lines and "
+                        "ignored: the port decodes images with PIL.")
+    p.add_argument("--no_native_io", dest="native_io", action="store_false",
+                   help="Accepted and ignored, as --native_io.")
+    p.add_argument("--eval_batch_size", type=int, default=d.eval_batch_size,
+                   help="Images per device batch in evaluate and detect "
+                        "(metrics are identical).")
+    p.add_argument("--tiled", action="store_true",
+                   help="detect: run sliding-window tiles at native resolution "
+                        "instead of downscaling the image (cross-tile "
+                        "duplicates are merged).")
+    p.add_argument("--tile_overlap", type=float, default=d.tile_overlap,
+                   help="Fraction of shared border between detect tiles.")
     return p
 
 
@@ -272,9 +321,15 @@ def config_from_args(argv=None) -> Config:
         decoder_dist_thresh=ns.decoder_dist_thresh,
         csi_threshold=ns.csi_threshold,
         csv_path=ns.csv_path,
+        summary_path=ns.summary_path,
+        conf_sweep=(tuple(float(t) for t in ns.conf_sweep.split(","))
+                    if ns.conf_sweep else None),
         use_amp=not ns.no_amp,
         seed=ns.seed,
         num_workers=ns.num_workers,
+        eval_batch_size=max(1, ns.eval_batch_size),
+        tiled=ns.tiled,
+        tile_overlap=ns.tile_overlap,
     )
     return cfg.finalize()
 

@@ -17,23 +17,20 @@
 // is, so no layout transpose surrounds the kernel (the Pallas version
 // transposed NHWC to planes and back).
 //
-// The sigmoid is 1 / (1 + expf(-x)), the formula of ATen's CUDA sigmoid. The
-// file is compiled without --use_fast_math, so the result is bit-identical to
-// clamp(torch.sigmoid(x)) followed by max_pool2d on the same card.
+// The clamped sigmoid is the one of sigmoid_nms_front.cuh, shared with
+// kernels B and C; the result is bit-identical to clamp(torch.sigmoid(x))
+// followed by max_pool2d on the same card.
 
 #include <cuda_runtime.h>
+
+#include "sigmoid_nms_front.cuh"
 
 namespace {
 
 constexpr int kTile = 32;
-constexpr int kPad = 2;
+constexpr int kPad = sdnet::kNmsPad;
 constexpr int kHalo = kTile + 2 * kPad;
 constexpr int kRows = 8;  // thread rows; each thread covers kTile / kRows rows
-
-__device__ __forceinline__ float clamped_sigmoid(float v) {
-  const float s = 1.0f / (1.0f + expf(-v));
-  return fminf(fmaxf(s, 1e-6f), 0.999999f);
-}
 
 __global__ void __launch_bounds__(kTile * kRows)
     sigmoid_nms_kernel(const float* __restrict__ x, float* __restrict__ out,
@@ -53,7 +50,7 @@ __global__ void __launch_bounds__(kTile * kRows)
     const int gy = oy + ly - kPad;
     const int gx = ox + lx - kPad;
     tile[ly][lx] = (gy >= 0 && gy < h && gx >= 0 && gx < w)
-                       ? clamped_sigmoid(xp[static_cast<size_t>(gy) * w + gx])
+                       ? sdnet::clamped_sigmoid(xp[static_cast<size_t>(gy) * w + gx])
                        : -1.0f;
   }
   __syncthreads();

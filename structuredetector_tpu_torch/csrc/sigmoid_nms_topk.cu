@@ -23,23 +23,19 @@
 // only the thread that owned the winner rescans its own pixels. Plane-level
 // parallelism comes from the grid: one block for each of the B * C planes.
 //
-// The sigmoid is 1 / (1 + expf(-x)), the formula of ATen's CUDA sigmoid, and
-// the file is compiled without --use_fast_math, so values and indices are
-// bit-identical to the plain PyTorch version on the same card.
+// The sigmoid + NMS front is sigmoid_nms_front.cuh, shared with kernels A
+// and C, so values and indices are bit-identical to the plain PyTorch
+// version on the same card.
 
 #include <climits>
 #include <cuda_runtime.h>
+
+#include "sigmoid_nms_front.cuh"
 
 namespace {
 
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
-constexpr int kPad = 2;
-
-__device__ __forceinline__ float clamped_sigmoid(float v) {
-  const float s = 1.0f / (1.0f + expf(-v));
-  return fminf(fmaxf(s, 1e-6f), 0.999999f);
-}
 
 // Selection order: larger value first, then smaller flat index.
 __device__ __forceinline__ bool better(float va, int ia, float vb, int ib) {
@@ -76,23 +72,14 @@ __global__ void __launch_bounds__(kThreads)
   float* sup = sig + n;
   const float* xp = x + static_cast<size_t>(plane) * n;
 
-  for (int p = tid; p < n; p += kThreads) sig[p] = clamped_sigmoid(xp[p]);
+  sdnet::sigmoid_plane(xp, sig, n);
   __syncthreads();
 
-  // Plateau NMS; cells outside the plane are skipped, so they never win.
   float best_v = -2.0f;  // below the -1 mask: a thread with no pixels never wins
   int best_i = INT_MAX;
   for (int p = tid; p < n; p += kThreads) {
     const int y = p / w;
-    const int xx = p - y * w;
-    const int y0 = max(y - kPad, 0), y1 = min(y + kPad, h - 1);
-    const int x0 = max(xx - kPad, 0), x1 = min(xx + kPad, w - 1);
-    float m = -1.0f;
-    for (int yy = y0; yy <= y1; ++yy) {
-      for (int xq = x0; xq <= x1; ++xq) m = fmaxf(m, sig[yy * w + xq]);
-    }
-    const float c = sig[p];
-    const float s = (c == m) ? c : 0.0f;
+    const float s = sdnet::plateau_nms_at(sig, y, p - y * w, h, w);
     sup[p] = s;
     if (s > best_v) {  // ascending p: strict > keeps the smallest index
       best_v = s;

@@ -1,17 +1,33 @@
-"""Host-side image transforms of the prediction path.
+"""Host-side image transforms of the prediction and evaluation paths.
 
-The part of `structuredetector_tpu/data/augment.py` that serving needs:
-`Resize`, `Normalize` and `PredictionTransformation`
-(reference `transforms.py:270-286`). PIL is imported inside the
-functions that use it, so a caller that feeds decoded arrays needs no
-Pillow.
+The part of `structuredetector_tpu/data/augment.py` that serving,
+`detect` and `evaluate` need: `Compose`, `Resize`, `Normalize`,
+`ValidationAugmentation` (reference `transforms.py:253-267`) and
+`PredictionTransformation` (`transforms.py:270-286`). The training
+transforms wait for the training slice of the port. PIL is imported
+inside the functions that use it, so a caller that feeds decoded arrays
+needs no Pillow.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from ..annotations import ImageAnnotation, clip_annotation
 from ..ops.device_augment import IMAGENET_MEAN, IMAGENET_STD
+
+
+class Compose:
+    def __init__(self, transforms):
+        self.transforms = list(transforms)
+
+    def __call__(self, *inputs):
+        for t in self.transforms:
+            inputs = t(*inputs)
+        return inputs
+
+    def __repr__(self):
+        return f"Compose(transforms: {self.transforms})"
 
 
 class Resize:
@@ -50,6 +66,32 @@ class Normalize:
         if target is None:
             return arr
         return arr, target
+
+
+class ToSample:
+    """Terminal transform of the evaluation path: the annotation, already
+    in input-image space, is clipped in place to the image bounds, as the
+    JAX package's `Flatten` clips it before it is compared with
+    predictions; returns the sample dict the `Loader` collates."""
+
+    def __call__(self, image: np.ndarray, target: ImageAnnotation) -> dict:
+        in_h, in_w = image.shape[:2]
+        clip_annotation(target, (in_w, in_h))
+        return {"image": image, "annotation": target}
+
+
+class ValidationAugmentation:
+    """Resize -> Normalize -> clip (reference `transforms.py:253-267`):
+    a PIL image and its annotation -> {"image": (H, W, 3) float32,
+    "annotation": annotation in input pixels}."""
+
+    def __init__(self, config):
+        self.transform = Compose(
+            [Resize((config.width, config.height)), Normalize(), ToSample()]
+        )
+
+    def __call__(self, image, target):
+        return self.transform(image, target)
 
 
 class PredictionTransformation:

@@ -1,11 +1,19 @@
-"""Host-side decoder: detection tensors -> `ImageAnnotation` objects.
+"""Host-side decoders: detection tensors -> `ImageAnnotation` objects.
 
-The port of `structuredetector_tpu/data/decoders.py::Decoder`: the device
-phase is `ops.decode.decode_feature_maps` with kernel A
-(`ops.kernels.sigmoid_nms`) as its front, and the host phase keeps the
-reference's threshold and ordering semantics (`decoders.py:102-139`):
-parts grouped by argmin anchor index in top-k order, anchors kept iff
-score > conf (strict), everything rescaled from grid to input pixels.
+The port of `structuredetector_tpu/data/decoders.py`:
+
+- `Decoder`: the device phase is `ops.decode.decode_feature_maps` with
+  kernel A (`ops.kernels.sigmoid_nms`) as its front, and the host phase
+  keeps the reference's threshold and ordering semantics
+  (`decoders.py:102-139`): parts grouped by argmin anchor index in top-k
+  order, anchors kept iff score > conf (strict), everything rescaled
+  from grid to input pixels. `return_metadata=True` also returns the
+  sigmoid heatmaps, the raw top-k rows and the conf-filtered
+  `raw_parts` the Evaluator's part metric reads (`decoders.py:141-177`).
+- `KeypointDecoder`: flat keypoints, no grouping (`decoders.py:345-423`).
+
+The export path's decoder waits for the export slice of the port. Maps
+are NCHW, as the port's model emits them.
 """
 
 from __future__ import annotations
@@ -31,7 +39,8 @@ class Decoder:
         self.max_parts = config.max_parts  # P
 
     def decode_arrays(self, outputs: Dict[str, torch.Tensor], conf_thresh: float,
-                      dist_thresh: float) -> Dict[str, torch.Tensor]:
+                      dist_thresh: float, with_metadata: bool = False
+                      ) -> Dict[str, torch.Tensor]:
         """Device phase only: fixed-shape detection tensors."""
         return decode_feature_maps(
             outputs,
@@ -40,29 +49,67 @@ class Decoder:
             conf_thresh=conf_thresh,
             dist_thresh=dist_thresh,
             nms_fn=sigmoid_nms,
+            with_metadata=with_metadata,
         )
 
-    def __call__(self, outputs, conf_thresh=None, dist_thresh=None):
+    def __call__(self, outputs, conf_thresh=None, dist_thresh=None,
+                 return_metadata: bool = False):
         conf_thresh = (
             conf_thresh if conf_thresh is not None else self.config.conf_threshold
         )
         dist_thresh = (
             dist_thresh if dist_thresh is not None else self.config.decoder_dist_thresh
         )
-        dec = self.decode_arrays(outputs, conf_thresh, dist_thresh)
-        out_hw = tuple(outputs["anchor_hm"].shape[2:])
-        return self.fetch_and_materialize(dec, out_hw, conf_thresh)
+        out_h, out_w = outputs["anchor_hm"].shape[2:]
+        in_h, in_w = int(self.down_ratio * out_h), int(self.down_ratio * out_w)
+
+        dec = self.decode_arrays(outputs, conf_thresh, dist_thresh,
+                                 with_metadata=return_metadata)
+        annotations, anchors, parts = self.fetch_and_materialize(
+            dec, (out_h, out_w), conf_thresh
+        )
+        if not return_metadata:
+            return annotations
+
+        # conf-filtered raw (pre-grouping) parts, rescaled to input pixels
+        # (decoders.py:143-159); keeps score >= conf (strict < skip),
+        # where the anchors above keep score > conf
+        raw_parts = []
+        for b_i in range(anchors.shape[0]):
+            raw_b = []
+            for i in range(self.max_parts):
+                p = parts[b_i, i]
+                score = float(p[2])
+                if score < conf_thresh:
+                    continue
+                kp = Keypoint(self.part_map[int(p[3])], float(p[0]), float(p[1]), score)
+                raw_b.append(kp.resize((out_w, out_h), (in_w, in_h)))
+            raw_parts.append(raw_b)
+
+        return {
+            "annotation": annotations,
+            "anchor_hm_sig": dec["anchor_hm_sig"],
+            "part_hm_sig": dec["part_hm_sig"],
+            "embeddings": dec["embeddings"],
+            "anchors": anchors,
+            "parts": parts,
+            "raw_parts": raw_parts,
+            "raw_embeddings": outputs["embeddings"],
+            "raw_offsets": outputs["offsets"],
+        }
 
     def fetch_and_materialize(self, dec, out_hw, conf_thresh):
         """One device->host copy of the four decode tensors, then
-        `materialize`."""
+        `materialize`. Returns (annotations, anchors, parts): the numpy
+        arrays come along for the metadata path's raw_parts."""
         anchors, parts, part_parent, part_valid = (
             dec[k].cpu().numpy()
             for k in ("anchors", "parts", "part_parent", "part_valid")
         )
-        return self.materialize(
+        annotations = self.materialize(
             anchors, parts, part_parent, part_valid, out_hw, conf_thresh
         )
+        return annotations, anchors, parts
 
     def materialize(self, anchors, parts, part_parent, part_valid,
                     out_hw, conf_thresh):
@@ -103,4 +150,45 @@ class Decoder:
             annotations.append(
                 image_annotation.resize((out_w, out_h), (in_w, in_h))
             )
+        return annotations
+
+
+class KeypointDecoder:
+    """Flat keypoint decode without part->anchor grouping
+    (reference decoders.py:345-423): every anchor and part with score
+    >= conf, rescaled to input pixels, per image."""
+
+    def __init__(self, config):
+        self._decoder = Decoder(config)
+        self.config = config
+
+    def __call__(self, outputs):
+        cfg = self.config
+        out_h, out_w = outputs["anchor_hm"].shape[2:]
+        in_h, in_w = int(cfg.down_ratio * out_h), int(cfg.down_ratio * out_w)
+        r_h, r_w = in_h / out_h, in_w / out_w
+
+        dec = self._decoder.decode_arrays(
+            outputs, cfg.conf_threshold, cfg.decoder_dist_thresh
+        )
+        anchors, parts = dec["anchors"].cpu().numpy(), dec["parts"].cpu().numpy()
+
+        annotations = []
+        for b_i in range(anchors.shape[0]):
+            kps = []
+            for a in anchors[b_i]:
+                if float(a[2]) < cfg.conf_threshold:
+                    continue
+                kps.append(
+                    Keypoint(cfg.r_labels[int(a[3])], float(a[0]) * r_w,
+                             float(a[1]) * r_h, float(a[2]))
+                )
+            for p in parts[b_i]:
+                if float(p[2]) < cfg.conf_threshold:
+                    continue
+                kps.append(
+                    Keypoint(cfg.r_parts[int(p[3])], float(p[0]) * r_w,
+                             float(p[1]) * r_h, float(p[2]))
+                )
+            annotations.append(kps)
         return annotations

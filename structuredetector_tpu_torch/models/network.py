@@ -124,14 +124,21 @@ def build_model(config, dtype: Optional[torch.dtype] = None) -> SDNet:
 
 
 def init_weights(model: nn.Module, seed: int) -> nn.Module:
-    """Seeded initialization: He-normal convolutions (fan out, as
-    torchvision's resnet), zero biases, unit BN scales."""
+    """Seeded initialization as the JAX package's flax modules draw it:
+    LeCun-normal convolutions (variance 1 / fan_in, truncated at two
+    standard deviations), zero biases, unit BN scales. An untrained
+    model in eval mode then keeps its maps O(1), so its detections land
+    inside the image (torchvision's fan-out He init grows them to ~1e3
+    over 40 layers without batch statistics)."""
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, nn.Conv2d):
-                nn.init.kaiming_normal_(m.weight, mode="fan_out", nonlinearity="relu",
-                                        generator=g)
+                fan_in = m.weight[0].numel()
+                # flax's truncated_normal: std corrected for the cut at +-2
+                std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
+                nn.init.trunc_normal_(m.weight, std=std, a=-2 * std, b=2 * std,
+                                      generator=g)
                 if m.bias is not None:
                     m.bias.zero_()
             elif isinstance(m, nn.BatchNorm2d):

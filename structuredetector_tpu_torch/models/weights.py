@@ -1,17 +1,22 @@
-"""Weights for the port's SDNet: reference-layout `.pth` files, and the
-carry-over from the JAX package's variable tree.
+"""Weights for the port's SDNet: reference-layout `.pth` files, the JAX
+package's `.msgpack` checkpoints, and the carry-over between the two
+layouts.
 
 The port's modules use the reference's names (`adpater.{0,1}`,
 `down1..4`, `up1`, `up{2,3,4}.{lateral,conv.0,conv.1}`, `head.conv`), so
 a `.pth` written by the reference, or by the JAX package's
-`save_reference_pth`, loads with `strict=True`. A checkpoint of another
-architecture (other widths, labels, backbone or head) raises instead of
-loading partly.
+`save_reference_pth`, loads with `strict=True`. A `.msgpack` written by
+the JAX package's `save_params` (the trainer's `model_best_*.msgpack`)
+is read without flax (`models.msgpack`) and mapped by
+`state_dict_from_jax`. A checkpoint of another architecture (other
+`fpn_depth`, labels, input channels, backbone or head) raises a
+`ValueError` that names the difference instead of loading partly.
 
 `state_dict_from_jax` is the port's own copy of the mapping in
 `structuredetector_tpu/models/torch_export.py`: a
 `{'params', 'batch_stats'}` tree of numpy arrays (HWIO kernels) becomes
-a state_dict (OIHW kernels).
+a state_dict (OIHW kernels); `jax_tree_from_state_dict` is its inverse,
+so the port writes checkpoints the JAX package loads (`save_msgpack`).
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
+from . import msgpack
 from .resnet import STAGE_SIZES
 
 
@@ -84,14 +90,94 @@ def state_dict_from_jax(tree: Mapping[str, Any]) -> "OrderedDict[str, torch.Tens
     return out
 
 
+def _hwio(w: torch.Tensor) -> np.ndarray:
+    """OIHW -> HWIO."""
+    return np.ascontiguousarray(np.transpose(w.detach().cpu().numpy(), (2, 3, 1, 0)))
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy().astype(np.float32)
+
+
+def jax_tree_from_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The port's state_dict -> the JAX package's `{'params',
+    'batch_stats'}` tree of numpy arrays; `state_dict_from_jax` inverts
+    it."""
+
+    def conv(prefix):
+        return {"kernel": _hwio(sd[f"{prefix}.weight"])}
+
+    def bn(prefix):
+        return ({"scale": _np(sd[f"{prefix}.weight"]), "bias": _np(sd[f"{prefix}.bias"])},
+                {"mean": _np(sd[f"{prefix}.running_mean"]),
+                 "var": _np(sd[f"{prefix}.running_var"])})
+
+    enc_p: Dict[str, Any] = {"conv1": conv("adpater.0")}
+    enc_s: Dict[str, Any] = {}
+    enc_p["bn1"], enc_s["bn1"] = bn("adpater.1")
+    for stage_i, n in enumerate(STAGE_SIZES):
+        for block in range(n):
+            src, dst = f"down{stage_i + 1}.{block}", f"layer{stage_i + 1}_{block}"
+            p, s = {"conv1": conv(f"{src}.conv1"), "conv2": conv(f"{src}.conv2")}, {}
+            p["bn1"], s["bn1"] = bn(f"{src}.bn1")
+            p["bn2"], s["bn2"] = bn(f"{src}.bn2")
+            if f"{src}.downsample.0.weight" in sd:
+                p["downsample_conv"] = conv(f"{src}.downsample.0")
+                p["downsample_bn"], s["downsample_bn"] = bn(f"{src}.downsample.1")
+            enc_p[dst], enc_s[dst] = p, s
+
+    params: Dict[str, Any] = {"encoder": enc_p}
+    stats: Dict[str, Any] = {"encoder": enc_s}
+    params["up1"] = {**conv("up1"), "bias": _np(sd["up1.bias"])}
+    for k in (2, 3, 4):
+        blk_p = {"lateral": {**conv(f"up{k}.lateral"), "bias": _np(sd[f"up{k}.lateral.bias"])},
+                 "conv": conv(f"up{k}.conv.0")}
+        blk_p["bn"], blk_s = bn(f"up{k}.conv.1")
+        params[f"up{k}"], stats[f"up{k}"] = blk_p, {"bn": blk_s}
+    params["head"] = {**conv("head.conv"), "bias": _np(sd["head.conv.bias"])}
+    return {"params": params, "batch_stats": stats}
+
+
+def _architecture(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """What a state_dict says of the architecture it was saved from."""
+    def dim(key, axis):
+        return int(sd[key].shape[axis]) if key in sd else None
+
+    blocks = tuple(
+        len({k.split(".")[1] for k in sd if k.startswith(f"down{i}.")}) for i in (1, 2, 3, 4))
+    return {
+        "fpn_depth": dim("up1.weight", 0),
+        "head outputs (labels + parts + 4)": dim("head.conv.weight", 0),
+        "input channels": dim("adpater.0.weight", 1),
+        "backbone blocks per stage (resnet34: 3, 4, 6, 3)": blocks,
+        "backbone block kind": "bottleneck" if any(".conv3." in k for k in sd) else "basic",
+        "head kernel": tuple(sd["head.conv.weight"].shape[2:]) if "head.conv.weight" in sd
+        else "another head",
+    }
+
+
+def check_architecture(model: torch.nn.Module, sd: Mapping[str, torch.Tensor],
+                       source="checkpoint") -> None:
+    """Raise a ValueError naming each way `sd` was saved from another
+    architecture than `model`'s."""
+    have, want = _architecture(sd), _architecture(model.state_dict())
+    diffs = [f"{name}: {have[name]} in the {source}, {want[name]} in the model"
+             for name in want if have[name] != want[name]]
+    if diffs:
+        raise ValueError(f"{source} is of another architecture than the model: "
+                         + "; ".join(diffs))
+
+
 def load_checkpoint(path) -> Dict[str, torch.Tensor]:
-    """A reference-layout state_dict from a `.pth`/`.pt` file."""
+    """A reference-layout state_dict from a `.pth`/`.pt` file or a JAX
+    `.msgpack` checkpoint."""
     path = Path(path)
+    if path.suffix == ".msgpack":
+        return state_dict_from_jax(msgpack.loads(path.read_bytes()))
     if path.suffix not in {".pth", ".pt"}:
         raise ValueError(
-            f"{path}: the port loads reference-layout torch .pth checkpoints; "
-            "convert a .msgpack checkpoint with the JAX package's "
-            "save_reference_pth first"
+            f"{path}: the port loads reference-layout torch .pth checkpoints "
+            "and the JAX package's .msgpack checkpoints"
         )
     sd = torch.load(path, map_location="cpu", weights_only=True)
     if not isinstance(sd, Mapping):
@@ -100,7 +186,20 @@ def load_checkpoint(path) -> Dict[str, torch.Tensor]:
 
 
 def load_weights(model: torch.nn.Module, path) -> torch.nn.Module:
-    """Load a `.pth` into `model` strictly: a missing, extra or
-    differently shaped tensor raises."""
-    model.load_state_dict(load_checkpoint(path), strict=True)
+    """Load a `.pth` or `.msgpack` into `model` strictly: another
+    architecture raises a ValueError that names the difference; a
+    missing, extra or differently shaped tensor beyond that raises
+    too."""
+    sd = load_checkpoint(path)
+    check_architecture(model, sd, source=str(path))
+    model.load_state_dict(sd, strict=True)
     return model
+
+
+def save_msgpack(model: torch.nn.Module, path) -> Path:
+    """Write `model`'s weights as the JAX package's `save_params` would:
+    a `.msgpack` that JAX `load_params` and the port's `load_weights`
+    read."""
+    path = Path(path)
+    path.write_bytes(msgpack.dumps(jax_tree_from_state_dict(model.state_dict())))
+    return path

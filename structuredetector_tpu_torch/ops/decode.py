@@ -108,6 +108,7 @@ def decode_feature_maps(
     conf_thresh: float,
     dist_thresh: float,
     nms_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+    with_metadata: bool = False,
 ) -> Dict[str, torch.Tensor]:
     """Decode NCHW head maps into fixed-shape detection tensors.
 
@@ -120,16 +121,23 @@ def decode_feature_maps(
       parts   (B, P, 6): x, y, score, label, origin_x, origin_y
       part_parent (B, P) int32: argmin anchor index per part
       part_valid  (B, P) bool: part linked to its parent
+    and with `with_metadata` also the clamped-sigmoid heatmaps
+    anchor_hm_sig (B, M, H, W) and part_hm_sig (B, N, H, W) and the
+    gathered part embeddings (B, P, 2).
     """
     front = nms_fn if nms_fn is not None else lambda x: plateau_nms(clamped_sigmoid(x))
     anchor_hm = front(outputs["anchor_hm"].float().contiguous())
     part_hm = front(outputs["part_hm"].float().contiguous())
-    return _gather_tail(
-        outputs,
-        topk_per_class(anchor_hm, max_objects),
-        topk_per_class(part_hm, max_parts),
-        conf_thresh, dist_thresh,
-    )
+    anchor_sel = topk_per_class(anchor_hm, max_objects)
+    part_sel = topk_per_class(part_hm, max_parts)
+    out = _gather_tail(outputs, anchor_sel, part_sel, conf_thresh, dist_thresh)
+    if with_metadata:
+        out.update(
+            anchor_hm_sig=clamped_sigmoid(outputs["anchor_hm"].float()),
+            part_hm_sig=clamped_sigmoid(outputs["part_hm"].float()),
+            embeddings=gather_features(outputs["embeddings"].float(), part_sel[1]),
+        )
+    return out
 
 
 def decode_feature_maps_planes(

@@ -2,8 +2,9 @@
 
 Each `csrc/<name>.cu` exposes plain C functions (no PyTorch headers), so
 `nvcc` compiles it in seconds into `_build/<name>-<hash>.so` inside the
-package directory (listed in `.gitignore`). The hash covers the source
-and the flags, so an edited source never loads a stale library. All
+package directory (listed in `.gitignore`). The hash covers the source,
+the shared headers `csrc/*.cuh` and the flags, so an edited source or
+header never loads a stale library. All
 sources compile in parallel, one `nvcc` each, on the first call of
 `load`; later calls in the process return the loaded library.
 
@@ -25,7 +26,7 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "_build"
-SOURCES = ("sigmoid_nms", "sigmoid_nms_topk")
+SOURCES = ("sigmoid_nms", "sigmoid_nms_topk", "sigmoid_nms_topk_rowmax")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -39,6 +40,10 @@ _SIGNATURES = {
     },
     "sigmoid_nms_topk": {
         "sdnet_sigmoid_nms_topk": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+        + [ctypes.c_void_p],
+    },
+    "sigmoid_nms_topk_rowmax": {
+        "sdnet_sigmoid_nms_topk_rowmax": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
         + [ctypes.c_void_p],
     },
 }
@@ -62,9 +67,9 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha256(
-        (CSRC / f"{name}.cu").read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
+    content = b"".join(p.read_bytes() for p in
+                       [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
+    digest = hashlib.sha256(content + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 

@@ -1,14 +1,21 @@
-"""Kernel B: fused clamped sigmoid + 5x5 plateau NMS + top-k per plane
-(`csrc/sigmoid_nms_topk.cu`).
+"""Kernels B and C: fused clamped sigmoid + 5x5 plateau NMS + top-k per
+plane.
 
 The port of `structuredetector_tpu/ops/pallas/topk.py::
-fused_sigmoid_nms_topk` (variant "rounds"). Values and flat indices
-y * W + x equal `select_topk(plateau_nms(clamped_sigmoid(x)))`: ties go
-to the smaller flat index, and with fewer than k peaks the zeros are
-taken in ascending index order.
+fused_sigmoid_nms_topk`, with its two variants:
 
-A CPU tensor goes through `sigmoid_nms_topk_reference`, the plain
-version; a CUDA tensor launches the kernel or raises.
+- "rounds" (the default), kernel B (`csrc/sigmoid_nms_topk.cu`): k rounds
+  of a block-wide reduction over the suppressed plane;
+- "onehot", kernel C (`csrc/sigmoid_nms_topk_rowmax.cu`): k rounds over a
+  per-row-max table, one warp, rescanning only the winning row.
+
+Both compute one function, so both have one plain version: values and
+flat indices y * W + x equal `select_topk(plateau_nms(clamped_sigmoid(x)))`,
+ties go to the smaller flat index, and with fewer than k peaks the zeros
+are taken in ascending index order.
+
+A CPU tensor goes through `sigmoid_nms_topk_reference`; a CUDA tensor
+launches the variant's kernel or raises.
 """
 
 from __future__ import annotations
@@ -20,25 +27,38 @@ from ._build import load
 from .nms import sigmoid_nms_reference
 
 MAX_PLANE_PIXELS = 256 * 256  # a 1024x1024 input at stride 4
-# Dynamic shared memory a block may use on sm_90 is 227 KiB; the kernel
-# needs 8 bytes a pixel (sigmoid + suppressed plane) and ~150 bytes of
-# its own. Larger planes use a global scratch buffer instead.
+# Dynamic shared memory a block may use on sm_90 is 227 KiB, less ~1 KiB
+# for each kernel's own. Kernel B needs 8 bytes a pixel (sigmoid +
+# suppressed plane), kernel C 4 more a row (its rowmax table); a plane
+# that needs more uses a global scratch buffer instead.
 _SHARED_BYTES = 227 * 1024 - 1024
+
+# variant -> (library in csrc/, C entry point, floats a plane needs beside
+# the logits: f(h, w))
+_VARIANTS = {
+    "rounds": ("sigmoid_nms_topk", "sdnet_sigmoid_nms_topk", lambda h, w: 2 * h * w),
+    "onehot": ("sigmoid_nms_topk_rowmax", "sdnet_sigmoid_nms_topk_rowmax",
+               lambda h, w: 2 * h * w + h),
+}
 
 
 def sigmoid_nms_topk_reference(planes: torch.Tensor, k: int):
     """Plain PyTorch version over (N, H, W) logits -> (values (N, k)
     float32, flat indices (N, k) int32)."""
-    n = planes.shape[0]
-    sup = sigmoid_nms_reference(planes)
-    vals, inds = select_topk(sup.reshape(n, -1), k)
+    n, h, w = planes.shape
+    # (N, 1, H, W): max_pool2d reads a 3-D input of N = 0 as 0 channels
+    sup = sigmoid_nms_reference(planes.unsqueeze(1))
+    vals, inds = select_topk(sup.reshape(n, h * w), k)
     return vals, inds.to(torch.int32)
 
 
-def sigmoid_nms_topk(planes: torch.Tensor, k: int):
+def sigmoid_nms_topk(planes: torch.Tensor, k: int, variant: str = "rounds"):
     """clamped sigmoid + 5x5 plateau NMS + top-k of each (H, W) plane of
     (N, H, W) float32 logits. Returns (values (N, k) float32, flat
-    indices (N, k) int32)."""
+    indices (N, k) int32). `variant` picks the kernel on a CUDA tensor:
+    "rounds" (kernel B) or "onehot" (kernel C); the result is the same."""
+    if variant not in _VARIANTS:
+        raise ValueError(f"unknown variant {variant!r}")
     if planes.dim() != 3:
         raise ValueError(f"expected (N, H, W) logits, got shape {tuple(planes.shape)}")
     if planes.dtype != torch.float32:
@@ -63,20 +83,22 @@ def sigmoid_nms_topk(planes: torch.Tensor, k: int):
     inds = torch.empty((n, k), dtype=torch.int32, device=planes.device)
     if n == 0:
         return vals, inds
+    source, entry, floats = _VARIANTS[variant]
     scratch = None
-    if 8 * h * w > _SHARED_BYTES:
-        scratch = torch.empty((n, 2, h * w), dtype=torch.float32, device=planes.device)
-    lib = load("sigmoid_nms_topk")
+    if 4 * floats(h, w) > _SHARED_BYTES:
+        scratch = torch.empty((n, floats(h, w)), dtype=torch.float32, device=planes.device)
+    fn = getattr(load(source), entry)
     with torch.cuda.device(planes.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.sdnet_sigmoid_nms_topk(
-            planes.data_ptr(), vals.data_ptr(), inds.data_ptr(),
-            None if scratch is None else scratch.data_ptr(),
-            n, h, w, k, stream)
+        err = fn(planes.data_ptr(), vals.data_ptr(), inds.data_ptr(),
+                 None if scratch is None else scratch.data_ptr(),
+                 n, h, w, k, stream)
     if err:
-        raise RuntimeError(f"sigmoid_nms_topk kernel launch failed: CUDA error {err}")
-    sigmoid_nms_topk.launches += 1
+        raise RuntimeError(
+            f"sigmoid_nms_topk ({variant}) kernel launch failed: CUDA error {err}")
+    sigmoid_nms_topk.launches_by_variant[variant] += 1
     return vals, inds
 
 
-sigmoid_nms_topk.launches = 0
+# launches of each variant's kernel
+sigmoid_nms_topk.launches_by_variant = {v: 0 for v in _VARIANTS}

@@ -120,7 +120,9 @@ class Predictor:
         fast_path: Optional[bool] = None,
     ):
         """`device` defaults to CUDA and raises where CUDA is missing;
-        pass "cpu" explicitly to run there.
+        pass "cpu" explicitly to run there. `model_path` (or
+        `config.pretrained_model`) is a `.pth` or a JAX `.msgpack`
+        checkpoint.
 
         `device_normalize` (default): the host only resizes; uint8
         pixels go to the device and the /255 + ImageNet normalization
@@ -175,9 +177,10 @@ class Predictor:
             outputs, cfg.conf_threshold, cfg.decoder_dist_thresh
         )
 
-    def to_device(self, arrays: List[np.ndarray]) -> torch.Tensor:
-        """Stack (H, W, 3) host feeds into one batch on the device."""
-        batch = torch.from_numpy(np.stack(arrays))
+    def to_device(self, arrays) -> torch.Tensor:
+        """Stack (H, W, 3) host feeds into one batch on the device; a
+        (B, H, W, 3) array (a collated batch) goes as it is."""
+        batch = torch.from_numpy(arrays if isinstance(arrays, np.ndarray) else np.stack(arrays))
         if self.device.type == "cuda":
             # pinned + non_blocking: the copy queues behind earlier work
             # on the stream instead of blocking this thread on it
@@ -220,7 +223,7 @@ class Predictor:
         if handle is None:
             return []
         dec, out_hw, sources = handle
-        annotations = self.decoder.fetch_and_materialize(
+        annotations, _, _ = self.decoder.fetch_and_materialize(
             dec, out_hw, self.config.conf_threshold
         )
         for ann, im in zip(annotations, sources):
@@ -255,7 +258,7 @@ class Predictor:
             n = len(chunk)
             chunk = chunk + [chunk[-1]] * (batch_size - n)
             dec, out_hw = self._device_decode([self.transform(t) for t in chunk])
-            anns = self.decoder.fetch_and_materialize(
+            anns, _, _ = self.decoder.fetch_and_materialize(
                 dec, out_hw, self.config.conf_threshold
             )
             for ann, (x, y) in zip(anns[:n], corners[start : start + n]):

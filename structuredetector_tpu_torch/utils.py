@@ -17,3 +17,15 @@ def resolve_device(device="cuda") -> torch.device:
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"the port runs on 'cuda' or 'cpu', not {device}")
     return device
+
+
+def progress(iterable, total: int, desc: str, every: int = 10):
+    """Yield from `iterable`, printing `desc: i/total` to stderr at the
+    first item, then every `every` items and at the last (plain lines:
+    the port needs no tqdm)."""
+    import sys
+
+    for i, item in enumerate(iterable, start=1):
+        yield item
+        if i == 1 or i % every == 0 or i == total:
+            print(f"{desc}: {i}/{total}", file=sys.stderr, flush=True)

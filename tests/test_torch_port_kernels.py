@@ -14,7 +14,12 @@ import torch
 
 from structuredetector_tpu.ops.pallas.nms import fused_sigmoid_nms
 from structuredetector_tpu.ops.pallas.topk import fused_sigmoid_nms_topk
-from structuredetector_tpu_torch.ops.kernels import sigmoid_nms, sigmoid_nms_topk
+from structuredetector_tpu_torch.ops.kernels import (
+    launch_counts,
+    reset_launch_counts,
+    sigmoid_nms,
+    sigmoid_nms_topk,
+)
 
 
 def _nchw(x: np.ndarray) -> torch.Tensor:
@@ -45,6 +50,7 @@ def test_sigmoid_nms_peaks_survive():
     np.testing.assert_allclose(got, want, atol=1e-6)
 
 
+@pytest.mark.parametrize("variant", ["rounds", "onehot"])
 @pytest.mark.parametrize(
     "shape,k",
     [
@@ -56,23 +62,29 @@ def test_sigmoid_nms_peaks_survive():
         ((25, 16, 16, 2), 4),
     ],
 )
-def test_sigmoid_nms_topk_matches_pallas(rng, shape, k):
+def test_sigmoid_nms_topk_matches_pallas(rng, shape, k, variant):
+    """Each variant of the port (kernel B "rounds", kernel C "onehot";
+    on the CPU both run the one plain version) against the same variant
+    of the Pallas kernel."""
     x = rng.normal(0, 3, size=shape).astype(np.float32)
     x[0, 4:7, 4:7, 0] = 2.5  # a plateau exercises the tie order
     planes = _planes(x)
-    want_v, want_i = fused_sigmoid_nms_topk(jnp.asarray(planes), k, interpret=True)
-    got_v, got_i = sigmoid_nms_topk(torch.from_numpy(planes), k)
+    want_v, want_i = fused_sigmoid_nms_topk(jnp.asarray(planes), k, interpret=True,
+                                            variant=variant)
+    got_v, got_i = sigmoid_nms_topk(torch.from_numpy(planes), k, variant=variant)
     assert got_i.dtype == torch.int32 and got_v.dtype == torch.float32
     np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
     np.testing.assert_allclose(got_v.numpy(), np.asarray(want_v), atol=1e-6)
 
 
-def test_sigmoid_nms_topk_tie_break_ascending():
+@pytest.mark.parametrize("variant", ["rounds", "onehot"])
+def test_sigmoid_nms_topk_tie_break_ascending(variant):
     """All-equal plane: every pixel is its own plateau peak, and the
     selection walks ascending flat indices at the shared value."""
     planes = np.zeros((1, 16, 16), np.float32)
-    want_v, want_i = fused_sigmoid_nms_topk(jnp.asarray(planes), 5, interpret=True)
-    got_v, got_i = sigmoid_nms_topk(torch.from_numpy(planes), 5)
+    want_v, want_i = fused_sigmoid_nms_topk(jnp.asarray(planes), 5, interpret=True,
+                                            variant=variant)
+    got_v, got_i = sigmoid_nms_topk(torch.from_numpy(planes), 5, variant=variant)
     np.testing.assert_array_equal(got_i.numpy()[0], [0, 1, 2, 3, 4])
     np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
     np.testing.assert_allclose(got_v.numpy(), 0.5, atol=1e-6)
@@ -83,6 +95,22 @@ def test_sigmoid_nms_topk_rejects_oversized_k():
         sigmoid_nms_topk(torch.zeros((1, 4, 4)), 17)
     with pytest.raises(ValueError, match="exceeds plane size"):
         fused_sigmoid_nms_topk(jnp.zeros((1, 4, 4)), 17, interpret=True)
+
+
+@pytest.mark.parametrize("variant", ["rounds", "onehot"])
+def test_sigmoid_nms_topk_of_no_planes(variant):
+    vals, inds = sigmoid_nms_topk(torch.zeros((0, 8, 8)), 3, variant=variant)
+    assert vals.shape == inds.shape == (0, 3)
+    assert vals.dtype == torch.float32 and inds.dtype == torch.int32
+
+
+def test_unknown_topk_variant_raises():
+    """Both packages refuse a variant they do not have, rather than
+    running another kernel."""
+    with pytest.raises(ValueError, match="unknown variant"):
+        sigmoid_nms_topk(torch.zeros((1, 8, 8)), 3, variant="bitonic")
+    with pytest.raises(ValueError, match="unknown variant"):
+        fused_sigmoid_nms_topk(jnp.zeros((1, 8, 8)), 3, interpret=True, variant="bitonic")
 
 
 def test_wrappers_check_their_inputs():
@@ -107,8 +135,17 @@ def test_wrappers_check_their_inputs():
 
 def test_cpu_wrappers_count_no_launches(rng):
     """A CPU tensor runs the plain version, which is not a kernel launch."""
-    before = (sigmoid_nms.launches, sigmoid_nms_topk.launches)
+    before = launch_counts()
     x = torch.from_numpy(rng.normal(0, 3, (2, 3, 16, 16)).astype(np.float32))
     sigmoid_nms(x)
     sigmoid_nms_topk(x.reshape(6, 16, 16), 4)
-    assert (sigmoid_nms.launches, sigmoid_nms_topk.launches) == before
+    sigmoid_nms_topk(x.reshape(6, 16, 16), 4, variant="onehot")
+    assert launch_counts() == before
+
+
+def test_launch_counts_name_every_kernel_and_reset():
+    sigmoid_nms_topk.launches_by_variant["onehot"] += 3  # as three launches would
+    assert launch_counts()["sigmoid_nms_topk_rowmax"] >= 3
+    reset_launch_counts()
+    assert launch_counts() == {"sigmoid_nms": 0, "sigmoid_nms_topk": 0,
+                               "sigmoid_nms_topk_rowmax": 0}

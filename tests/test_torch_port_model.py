@@ -117,9 +117,9 @@ def test_architecture_mismatch_raises(tiny_config, variables, tmp_path):
     path = tmp_path / "w.pth"
     torch.save(state_dict_from_jax(variables), path)
     load_weights(SDNet(2, 1, fpn_depth=32), path)  # the matching one loads
-    with pytest.raises(RuntimeError, match="size mismatch"):
+    with pytest.raises(ValueError, match="fpn_depth: 32 in the .*, 16 in the model"):
         load_weights(SDNet(2, 1, fpn_depth=16), path)
-    with pytest.raises(RuntimeError, match="size mismatch"):
+    with pytest.raises(ValueError, match=r"head outputs \(labels \+ parts \+ 4\): 7"):
         load_weights(SDNet(3, 1, fpn_depth=32), path)  # other label count
     sd = state_dict_from_jax(variables)
     del sd["up1.bias"]
@@ -127,9 +127,29 @@ def test_architecture_mismatch_raises(tiny_config, variables, tmp_path):
     with pytest.raises(RuntimeError, match="Missing key"):
         load_weights(SDNet(2, 1, fpn_depth=32), path)
     with pytest.raises(ValueError, match=".pth"):
-        load_checkpoint(tmp_path / "w.msgpack")
+        load_checkpoint(tmp_path / "w.npz")
 
 
 def test_compute_dtype_is_torch():
     assert PortConfig(use_amp=True).compute_dtype == torch.bfloat16
     assert PortConfig(use_amp=False).compute_dtype == torch.float32
+
+
+def test_seeded_init_draws_as_flax(tiny_config, variables):
+    """The port's seeded init draws each convolution as the JAX package's
+    flax modules do (LeCun normal, variance 1 / fan_in): per layer, the
+    weights' standard deviation is the JAX init's within 10 %, and an
+    untrained model in eval mode keeps its head maps O(1) (a fan-out He
+    init grew them to ~1e3, which put every detection off the image)."""
+    from structuredetector_tpu_torch.models.network import init_model as port_init_model
+
+    net = port_init_model(port_config(tiny_config))
+    want = state_dict_from_jax(variables)
+    for key, value in net.state_dict().items():
+        if key.endswith(".weight") and value.dim() == 4 and value.numel() >= 4096:
+            ratio = float(value.std() / want[key].std())
+            assert 0.9 < ratio < 1.1, (key, ratio)
+    images = np.random.default_rng(3).normal(0, 1, (2, 3, 64, 64)).astype(np.float32)
+    with torch.inference_mode():
+        head = net(torch.from_numpy(images), raw_output=True)
+    assert float(head.abs().max()) < 50.0

@@ -114,7 +114,7 @@ def test_predictor_without_device_raises_without_cuda(setup):
 
 def test_predictor_refuses_another_architecture(setup):
     _, cfg = setup
-    with pytest.raises(RuntimeError, match="size mismatch"):
+    with pytest.raises(ValueError, match="fpn_depth"):
         Predictor(dataclasses.replace(cfg, fpn_depth=16), device="cpu")
 
 
