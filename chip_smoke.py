@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (`structuredetector_tpu_torch`).
 
-    python3 chip_smoke.py [--load_model model.pth|model.msgpack]
+    python3 chip_smoke.py [--load_model model.pth|model.msgpack] [--parent DIR]
 
 Runs on one NVIDIA GPU from the root of a checkout and imports nothing
 of JAX or of the JAX package. Phases, one JSON line each:
@@ -11,8 +11,18 @@ of JAX or of the JAX package. Phases, one JSON line each:
    per source, in parallel);
 3. kernels: holds each kernel (A sigmoid_nms, B sigmoid_nms_topk, C
    sigmoid_nms_topk_rowmax) bit-exact against its plain PyTorch version
-   at the main paths' shapes and on edge cases, and times kernel, plain
-   version and yardstick with CUDA events;
+   at the main paths' shapes and on the tiling's edge cases (ragged
+   tiles, a plateau across tile borders, k above a tile's pixels,
+   256x256, more than 32 tiles, 1x1, a saturated background), and
+   times kernel, plain version and yardstick with CUDA events, kernels B
+   and C on random and on saturated-background planes: kernel B also by
+   phase (tile selection, merge, the gap between them; from a
+   torch.profiler trace) and t(k) for k = 1, 20, 40, each kernel's share
+   of its bound, and the SM clock and power of the timed card sampled
+   beside the window;
+   with `--parent DIR` (a checkout of another commit), also that
+   checkout's kernels A and B, called through its own public wrappers,
+   against these, in turns (old, new, new, old);
 4. serve (main path of kernels A and B): a full-width SDNet (resnet34,
    fpn_depth 128, 512x512, bf16, labels.json) behind the port's
    micro-batching HTTP server answers concurrent PNG POSTs; the Decoder
@@ -99,6 +109,129 @@ def phase_build():
           "ptxas": report})
 
 
+def _pci_bus_id() -> str:
+    """The PCI bus id of the current CUDA device, as `nvidia-smi -i` takes
+    it (the device index would name another card under
+    CUDA_VISIBLE_DEVICES)."""
+    import torch
+
+    props = torch.cuda.get_device_properties(torch.cuda.current_device())
+    return f"{props.pci_domain_id:08X}:{props.pci_bus_id:02X}:{props.pci_device_id:02X}.0"
+
+
+@contextlib.contextmanager
+def sampled_clocks(into: dict):
+    """Sample the SM clock and power of the current CUDA device every
+    100 ms while the block runs (`nvidia-smi --query-gpu=clocks.sm,
+    power.draw,power.limit --format=csv`); on exit write their min /
+    median / max and the card's bus id into `into`."""
+    import subprocess
+
+    bus_id = _pci_bus_id()
+    proc = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit",
+         "--format=csv,noheader,nounits", "-i", bus_id, "-lms", "100"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        yield
+    finally:
+        proc.terminate()
+        try:
+            out, _ = proc.communicate(timeout=10)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, _ = proc.communicate()
+    rows = []
+    for line in out.splitlines():
+        try:
+            rows.append([float(v) for v in line.split(",")])
+        except ValueError:
+            continue  # a line cut by the terminate, or "[N/A]"
+    for i, name in enumerate(("sm_clock_mhz", "power_draw_w", "power_limit_w")):
+        vals = sorted(r[i] for r in rows if len(r) == 3)
+        into[name] = [vals[0], vals[len(vals) // 2], vals[-1]] if vals else None
+    into["samples"] = len(rows)
+    into["pci_bus_id"] = bus_id
+    into["format"] = "[min, median, max] over samples every 100 ms"
+
+
+def saturated(rng, n: int, h: int = 128, w: int = 128, peaks: int = 4):
+    """(n, h, w) logits of a background a trained head has saturated: -20
+    everywhere, where the clamped sigmoid is 1e-6, a plateau on which
+    every pixel is the max of its window, with `peaks` 3x3 bumps a plane.
+    Kernel B's select takes its plateau path on every tile of such a
+    plane, where random planes take the path for few keys in play."""
+    import numpy as np
+    import torch
+
+    x = np.full((n, h, w), -20.0, np.float32)
+    for plane in x:
+        for _ in range(peaks):
+            y, c = rng.integers(1, h - 1), rng.integers(1, w - 1)
+            plane[y - 1:y + 2, c - 1:c + 2] = rng.uniform(-4.0, 4.0)
+            plane[y, c] += 1.0
+    return torch.from_numpy(x).cuda()
+
+
+def kernel_trace(fn, first: str, second: str, iters: int = 50) -> dict:
+    """Kernel B's phases in a torch.profiler (CUPTI) trace of `iters`
+    calls of `fn`: per call of `fn`, the device ms of the kernels whose
+    name holds `first` and of those that hold `second`, and the idle ms
+    from the end of each `first` launch to the start of the `second`
+    launch after it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        # a ~50 ms spin first, so every call is queued before the card
+        # reaches it: the gaps are the card's, not the traced host's
+        torch.cuda._sleep(100_000_000)
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
+                     and (first in e.name or second in e.name)),
+                    key=lambda e: e.time_range.start)
+    out = {}
+    for key, name in (("phase1_tiles", first), ("phase2_merge", second)):
+        out[key] = sum(e.time_range.elapsed_us() for e in events if name in e.name) / 1e3 / iters
+    gaps = [b.time_range.start - a.time_range.end for a, b in zip(events, events[1:])
+            if first in a.name and second in b.name]
+    if not out["phase1_tiles"] or not out["phase2_merge"] or not gaps:
+        raise AssertionError(f"the profiler saw no device time of {first} / {second}")
+    out["gap_ms"] = sum(gaps) / 1e3 / iters
+    out["format"] = f"device ms a call from a torch.profiler trace of {iters} calls"
+    return out
+
+
+def edge_cases(rng):
+    """(planes, k) where the 32-wide, 64-tall tiling of kernels A and B has
+    edges to get wrong: ragged tiles, a plateau across a tile border, k
+    above a tile's pixels on a plane with one peak, a 256x256 plane and one
+    of more than 32 tiles, a 1x1 plane with k = 1."""
+    import numpy as np
+    import torch
+
+    def logits(*shape):
+        return torch.from_numpy(rng.normal(0, 3, shape).astype(np.float32)).cuda()
+
+    border = logits(2, 128, 128)
+    border[:, 60:68, 28:36] = 20.0  # clamps to 1 - 1e-6: one plateau over 4 tiles
+    yy, xx = np.mgrid[0:128, 0:128]
+    cone = (5.0 - np.hypot(yy - 70, xx - 40) / 20.0).astype(np.float32)
+    return {"ragged 33x65": (logits(3, 33, 65), 9), "ragged 40x72": (logits(3, 40, 72), 9),
+            "plateau across tile borders": (border, 40),
+            "k=2100 > tile pixels, one peak": (torch.from_numpy(np.stack([cone, cone.T])).cuda(),
+                                               2100),
+            "256x256, 32 tiles": (logits(4, 256, 256), 40),
+            "65x1008, 64 tiles": (logits(2, 65, 1008), 40),
+            "1x1, k=1": (logits(3, 1, 1), 1)}
+
+
 def phase_kernels(card: str) -> dict:
     """Bit-exactness and timings; returns the per-kernel measurements."""
     import numpy as np
@@ -116,24 +249,33 @@ def phase_kernels(card: str) -> dict:
     def logits(*shape):
         return torch.from_numpy(rng.normal(0, 3, shape).astype(np.float32)).cuda()
 
-    # kernel A: (32, 3, 128, 128), the two serving shapes, a non-square plane
+    # kernels B ("rounds") and C ("onehot"): serving shapes (anchors 2 x 32,
+    # parts 32) on random and on saturated-background planes, a plane count
+    # not a multiple of 8, an all-equal plane, non-square planes, a 256x256
+    # plane, k = H * W (every row spent), and the tiling's edge cases
+    sat_a, sat_p = saturated(rng, 64), saturated(rng, 32)
+    cases = {"anchors 64x128x128": (logits(64, 128, 128), 20),
+             "parts 32x128x128": (logits(32, 128, 128), 40),
+             "saturated anchors 64x128x128": (sat_a, 20),
+             "saturated parts 32x128x128": (sat_p, 40),
+             "100 planes": (logits(100, 128, 128), 20),
+             "all-equal": (torch.zeros((2, 128, 128), device="cuda"), 40),
+             "40x72 k=H*W": (logits(2, 40, 72), 40 * 72), **edge_cases(rng)}
+
+    # kernel A: (32, 3, 128, 128), the two serving shapes, and every
+    # top-k case's planes
     err_a = 0.0
-    for shape in ((32, 3, 128, 128), (32, 2, 128, 128), (32, 1, 128, 128), (3, 2, 40, 72)):
-        x = logits(*shape)
+    a_inputs = [logits(*shape) for shape in ((32, 3, 128, 128), (32, 2, 128, 128),
+                                             (32, 1, 128, 128), (3, 2, 40, 72))]
+    for x in a_inputs + [planes.unsqueeze(1) for planes, _ in cases.values()]:
         got, want = sigmoid_nms(x), sigmoid_nms_reference(x)
         err_a = max(err_a, max_abs_diff(got, want))
         if not torch.equal(got, want):
-            raise AssertionError(f"sigmoid_nms differs from its plain version at {shape}")
+            raise AssertionError(f"sigmoid_nms differs from its plain version at "
+                                 f"{tuple(x.shape)}")
 
-    # kernels B ("rounds") and C ("onehot"): serving shapes (anchors 2 x 32,
-    # parts 32), a plane count not a multiple of 8, an all-equal plane,
-    # non-square planes, a 256x256 plane (global-scratch path) and k = H * W
-    # (every row spent)
-    cases = [(logits(64, 128, 128), 20), (logits(32, 128, 128), 40),
-             (logits(100, 128, 128), 20), (torch.zeros((2, 128, 128), device="cuda"), 40),
-             (logits(3, 40, 72), 9), (logits(4, 256, 256), 40), (logits(2, 40, 72), 40 * 72)]
     err = {"rounds": 0.0, "onehot": 0.0}
-    for planes, k in cases:
+    for name, (planes, k) in cases.items():
         want = sigmoid_nms_topk_reference(planes, k)
         for variant in err:
             got = sigmoid_nms_topk(planes, k, variant=variant)
@@ -141,10 +283,10 @@ def phase_kernels(card: str) -> dict:
                 err[variant] = max(err[variant], max_abs_diff(g, w))
                 if not torch.equal(g, w):
                     raise AssertionError(
-                        f"sigmoid_nms_topk ({variant}) differs from its plain version at "
-                        f"{tuple(planes.shape)}, k={k}")
+                        f"sigmoid_nms_topk ({variant}) differs from its plain version on "
+                        f"{name} {tuple(planes.shape)}, k={k}")
     for variant in err:
-        flat_inds = sigmoid_nms_topk(cases[3][0], 40, variant=variant)[1]
+        flat_inds = sigmoid_nms_topk(cases["all-equal"][0], 40, variant=variant)[1]
         if flat_inds.cpu().tolist() != [list(range(40))] * 2:
             raise AssertionError(
                 f"all-equal plane ({variant}): ties must go to ascending flat index")
@@ -155,50 +297,142 @@ def phase_kernels(card: str) -> dict:
     anchors, parts = logits(32, 2, 128, 128), logits(32, 1, 128, 128)
     a_planes, p_planes = anchors.reshape(64, 128, 128), parts.reshape(32, 128, 128)
     pixels = anchors.numel() + parts.numel()
+    clocks = {}
+    with sampled_clocks(clocks):
+        a_ms = time_ms(lambda: (sigmoid_nms(anchors), sigmoid_nms(parts)))
+        a_plain = time_ms(lambda: (sigmoid_nms_reference(anchors),
+                                   sigmoid_nms_reference(parts)))
+        # a plain copy of the bytes kernel A moves: the practical floor of a
+        # bytes-bound kernel at this size (not the same function)
+        a_out, p_out = torch.empty_like(anchors), torch.empty_like(parts)
+        a_copy = time_ms(lambda: (a_out.copy_(anchors), p_out.copy_(parts)))
+        topk_plain = time_ms(lambda: (sigmoid_nms_topk_reference(a_planes, 20),
+                                      sigmoid_nms_topk_reference(p_planes, 40)))
+        sup_a = sigmoid_nms_reference(a_planes).reshape(64, -1)
+        sup_p = sigmoid_nms_reference(p_planes).reshape(32, -1)
+        topk_partial = time_ms(lambda: (torch.topk(sup_a, 20), torch.topk(sup_p, 40)))
+        # kernels B and C on random and on saturated-background planes, in
+        # turns: B, C, C, B
+        traffic = {"random": (a_planes, p_planes), "saturated": (sat_a, sat_p)}
+        topk = {(v, t): [] for v in ("rounds", "onehot") for t in traffic}
+        for t, (xa, xp) in traffic.items():
+            for variant in ("rounds", "onehot", "onehot", "rounds"):
+                topk[variant, t].append(time_ms(lambda v=variant, xa=xa, xp=xp: (
+                    sigmoid_nms_topk(xa, 20, variant=v), sigmoid_nms_topk(xp, 40, variant=v))))
+        # t(k) on the anchor planes
+        by_k = {v: {k: time_ms(lambda k=k, v=v: sigmoid_nms_topk(a_planes, k, variant=v))
+                    for k in (1, 20, 40)} for v in ("rounds", "onehot")}
+        # kernel B's two phases apart: phase 1 (tiled front + tile
+        # selection), phase 2 (merge), from the profiler's kernel times
+        split = {t: kernel_trace(lambda xa=xa, xp=xp: (sigmoid_nms_topk(xa, 20),
+                                                       sigmoid_nms_topk(xp, 40)),
+                                 "topk_tiles_kernel", "topk_merge_kernel")
+                 for t, (xa, xp) in traffic.items()}
+        for t in traffic:
+            split[t]["both_events_ms"] = sum(topk["rounds", t]) / 2
+        # the device time of a near-empty kernel (a spin of 0 cycles): the
+        # floor under each launch above
+        empty_ms = time_ms(lambda: torch.cuda._sleep(0))
 
-    a_ms = time_ms(lambda: (sigmoid_nms(anchors), sigmoid_nms(parts)))
-    a_plain = time_ms(lambda: (sigmoid_nms_reference(anchors), sigmoid_nms_reference(parts)))
     a_bound, a_by = bound_ms(2 * 4 * pixels, FRONT_OPS_PER_PIXEL * pixels)
-
     # B and C compute one function: one bound, one plain version, one
     # partial yardstick (torch.topk over the already suppressed planes,
     # selection only; no single PyTorch call computes the whole function)
     out_bytes = (64 * 20 + 32 * 40) * 8
     topk_bound, topk_by = bound_ms(4 * pixels + out_bytes,
                                    (FRONT_OPS_PER_PIXEL + SELECT_OPS_PER_PIXEL) * pixels)
-    topk_plain = time_ms(lambda: (sigmoid_nms_topk_reference(a_planes, 20),
-                                  sigmoid_nms_topk_reference(p_planes, 40)))
-    sup_a = sigmoid_nms_reference(a_planes).reshape(64, -1)
-    sup_p = sigmoid_nms_reference(p_planes).reshape(32, -1)
-    topk_partial = time_ms(lambda: (torch.topk(sup_a, 20), torch.topk(sup_p, 40)))
-    topk = {}
-    for variant in ("rounds", "onehot"):  # in turns: B, C, C, B
-        topk[variant] = [time_ms(lambda v=variant: (sigmoid_nms_topk(a_planes, 20, variant=v),
-                                                    sigmoid_nms_topk(p_planes, 40, variant=v)))]
-    for variant in ("onehot", "rounds"):
-        topk[variant].append(time_ms(lambda v=variant: (
-            sigmoid_nms_topk(a_planes, 20, variant=v), sigmoid_nms_topk(p_planes, 40, variant=v))))
-    # t(k) on the anchor planes: t0 (load, sigmoid, NMS) + k rounds
-    by_k = {v: {k: time_ms(lambda k=k, v=v: sigmoid_nms_topk(a_planes, k, variant=v))
-                for k in (1, 20, 40)} for v in ("rounds", "onehot")}
 
     def topk_entry(variant):
-        return {"max_abs_err": err[variant], "ms": sum(topk[variant]) / 2,
-                "ms_runs": topk[variant], "plain_ms": topk_plain, "bound_ms": topk_bound,
-                "bound_by": topk_by, "library_ms": None, "topk_partial_ms": topk_partial,
-                "ms_by_k_64_planes": by_k[variant]}
+        ms = sum(topk[variant, "random"]) / 2
+        sat_ms = sum(topk[variant, "saturated"]) / 2
+        return {"max_abs_err": err[variant], "ms": ms, "ms_runs": topk[variant, "random"],
+                "plain_ms": topk_plain, "bound_ms": topk_bound, "bound_by": topk_by,
+                "bound_share": topk_bound / ms, "library_ms": None,
+                "topk_partial_ms": topk_partial, "ms_by_k_64_planes": by_k[variant],
+                "saturated_ms": sat_ms, "saturated_ms_runs": topk[variant, "saturated"],
+                "saturated_bound_share": topk_bound / sat_ms}
 
     result = {
         "sigmoid_nms": {"max_abs_err": err_a, "ms": a_ms, "plain_ms": a_plain,
-                        "bound_ms": a_bound, "bound_by": a_by, "library_ms": None},
-        "sigmoid_nms_topk": topk_entry("rounds"),
+                        "bound_ms": a_bound, "bound_by": a_by, "bound_share": a_bound / a_ms,
+                        "library_ms": None, "copy_same_bytes_ms": a_copy},
+        "sigmoid_nms_topk": {**topk_entry("rounds"), "phases_ms": split},
         "sigmoid_nms_topk_rowmax": topk_entry("onehot"),
     }
-    emit({"phase": "kernels", "card": card, "bit_exact": True,
+    emit({"phase": "kernels", "card": card, "bit_exact": True, "cases": list(cases),
           "timed_work": "one served batch of 32 at 512x512: anchors (32,2,128,128) + "
-                        "parts (32,1,128,128); warm L2, CUDA events, mean of 50",
+                        "parts (32,1,128,128), N(0, 3) logits; saturated_*: the same "
+                        "shapes at -20 with 4 peaks a plane; warm L2, CUDA events, "
+                        "mean of 50",
           "topk_partial_ms_is": "torch.topk over the suppressed planes only (partial)",
-          **result})
+          "empty_kernel_ms": empty_ms, "clocks": clocks, **result})
+    return result
+
+
+def _import_checkout(parent: Path):
+    """The kernels module of another checkout's port package, imported
+    under a name of its own. The package's modules import one another
+    relatively, so its kernels build from its own csrc/ into its own
+    _build/ and count their own launches."""
+    import importlib
+    import importlib.util
+
+    name = "sdnet_parent"
+    pkg = parent / "structuredetector_tpu_torch"
+    spec = importlib.util.spec_from_file_location(
+        name, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[name] = module
+    spec.loader.exec_module(module)
+    return importlib.import_module(f"{name}.ops.kernels")
+
+
+def phase_parent(card: str, parent: Path) -> dict:
+    """Kernels A and B of another checkout (the parent commit), built from
+    its csrc/ and called through its public wrappers `sigmoid_nms` and
+    `sigmoid_nms_topk`, against this checkout's, in turns (old, new, new,
+    old) at the batch-32 work: A on random logits, B on random and on
+    saturated-background planes. Both must give the same outputs."""
+    import numpy as np
+    import torch
+
+    from structuredetector_tpu_torch.ops import kernels as new
+
+    old = _import_checkout(parent)
+    rng = np.random.default_rng(926354916)
+    anchors, parts = (torch.from_numpy(rng.normal(0, 3, (32, c, 128, 128)).astype(np.float32))
+                      .cuda() for c in (2, 1))
+    traffic = {"random": (anchors.reshape(64, 128, 128), parts.reshape(32, 128, 128)),
+               "saturated": (saturated(rng, 64), saturated(rng, 32))}
+
+    for x in (anchors, parts):
+        if not torch.equal(old.sigmoid_nms(x), new.sigmoid_nms(x)):
+            raise AssertionError("the parent's kernel A and this one disagree")
+    for xa, xp in traffic.values():
+        for x, k in ((xa, 20), (xp, 40)):
+            for o, n in zip(old.sigmoid_nms_topk(x, k), new.sigmoid_nms_topk(x, k)):
+                if not torch.equal(o, n):
+                    raise AssertionError("the parent's kernel B and this one disagree")
+
+    def topk(mod, t):
+        xa, xp = traffic[t]
+        return lambda: (mod.sigmoid_nms_topk(xa, 20), mod.sigmoid_nms_topk(xp, 40))
+
+    work = {"A": {"old": lambda: (old.sigmoid_nms(anchors), old.sigmoid_nms(parts)),
+                  "new": lambda: (new.sigmoid_nms(anchors), new.sigmoid_nms(parts))}}
+    for t in traffic:
+        work[f"B {t}"] = {"old": topk(old, t), "new": topk(new, t)}
+    result, clocks = {}, {}
+    with sampled_clocks(clocks):
+        for kernel, fns in work.items():
+            runs = {"old": [], "new": []}
+            for which in ("old", "new", "new", "old"):
+                runs[which].append(time_ms(fns[which]))
+            result[kernel] = {**runs, "old_ms": sum(runs["old"]) / 2,
+                              "new_ms": sum(runs["new"]) / 2}
+    emit({"phase": "parent", "card": card, "parent": str(parent),
+          "timed_work": "batch-32 work as in the kernels phase, in turns old, new, new, old",
+          "clocks": clocks, **result})
     return result
 
 
@@ -582,6 +816,9 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--load_model", type=Path, default=None,
                    help="a .pth or .msgpack to run instead of the seeded init")
+    p.add_argument("--parent", type=Path, default=None,
+                   help="another checkout (the parent commit): also time its kernels A "
+                        "and B, through its public wrappers, against this one's, in turns")
     args = p.parse_args(argv)
 
     import torch
@@ -602,6 +839,8 @@ def main(argv=None) -> int:
           "count": torch.cuda.device_count()})
     phase_build()
     kernels = phase_kernels(card)
+    if args.parent is not None:
+        phase_parent(card, args.parent.resolve())
     by_path = {"serve": phase_serve(card, args.load_model),
                "topk_variants": phase_topk_variants(card),
                "evaluate_detect": phase_evaluate_detect(card, args.load_model)}
@@ -615,7 +854,8 @@ def main(argv=None) -> int:
         "sigmoid_nms_topk_rowmax": ("structuredetector_tpu_torch/csrc/sigmoid_nms_topk_rowmax.cu",
                                     "structuredetector_tpu/ops/pallas/topk.py:116"),
     }
-    extra = ("topk_partial_ms", "ms_by_k_64_planes", "ms_runs")
+    extra = ("topk_partial_ms", "ms_by_k_64_planes", "ms_runs", "phases_ms",
+             "copy_same_bytes_ms", "saturated_ms", "saturated_ms_runs", "saturated_bound_share")
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": sum(counts[name] for counts in by_path.values()),

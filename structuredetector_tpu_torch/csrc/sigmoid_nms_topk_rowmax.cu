@@ -13,8 +13,10 @@
 // 3.35 TB/s) and k values and indices out. In practice the front (sigmoid +
 // 25-tap window a pixel, by one block a plane) and then the chain of k
 // dependent selection rounds set the time: latency, not a rate.
-// What the design does about it: the front is kernel B's, from
-// sigmoid_nms_front.cuh, so the two cannot drift apart. The plane stays on
+// What the design does about it: the front is the clamped sigmoid of
+// sigmoid_nms_front.cuh, shared with kernels A and B so the three cannot
+// drift apart, over the whole plane, and a 25-tap window max a pixel (the
+// tiled front of kernels A and B is not used here yet). The plane stays on
 // chip (sigmoid and suppressed planes in shared memory; a plane too large
 // for it, up to 256x256, in a scratch buffer from the wrapper that stays in
 // L2). The suppressed plane is computed row by row, one warp a row, so each
@@ -30,8 +32,7 @@
 //      rowmax[row] from the lanes' runners-up: one more warp reduction.
 // The smallest row holding the max, then its smallest column holding it, is
 // the smallest flat index holding the max, so the order is kernel B's.
-// A round costs O(H/32 + W/32) loads a lane and three warp reductions,
-// where kernel B pays a 512-thread block reduction and a rescan.
+// A round costs O(H/32 + W/32) loads a lane and three warp reductions.
 
 #include <climits>
 #include <cuda_runtime.h>
@@ -45,6 +46,30 @@ constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr float kMasked = -1.0f;  // a taken pixel; below every suppressed value
 constexpr float kNone = -2.0f;    // a lane with no pixel; below the mask
+
+// sig[p] = clamped_sigmoid(x[p]) for the n pixels of a plane, strided over
+// the block's threads.
+__device__ __forceinline__ void sigmoid_plane(const float* __restrict__ x,
+                                              float* sig, int n) {
+  for (int p = threadIdx.x; p < n; p += blockDim.x) {
+    sig[p] = sdnet::clamped_sigmoid(x[p]);
+  }
+}
+
+// The suppressed value of pixel (y, xx) of an (h, w) sigmoid plane: its
+// value where it is the max of its 5x5 window, else 0.
+__device__ __forceinline__ float plateau_nms_at(const float* sig, int y,
+                                                int xx, int h, int w) {
+  constexpr int kPad = sdnet::kNmsPad;
+  const int y0 = max(y - kPad, 0), y1 = min(y + kPad, h - 1);
+  const int x0 = max(xx - kPad, 0), x1 = min(xx + kPad, w - 1);
+  float m = -1.0f;
+  for (int yy = y0; yy <= y1; ++yy) {
+    for (int xq = x0; xq <= x1; ++xq) m = fmaxf(m, sig[yy * w + xq]);
+  }
+  const float c = sig[y * w + xx];
+  return (c == m) ? c : 0.0f;
+}
 
 // Selection order: larger value first, then smaller index.
 __device__ __forceinline__ bool better(float va, int ia, float vb, int ib) {
@@ -88,14 +113,14 @@ __global__ void __launch_bounds__(kThreads)
   float* rowmax = sup + n;
   const float* xp = x + static_cast<size_t>(plane) * n;
 
-  sdnet::sigmoid_plane(xp, sig, n);
+  sigmoid_plane(xp, sig, n);
   __syncthreads();
 
   // The suppressed plane, one warp a row, and each row's max.
   for (int y = warp; y < h; y += kWarps) {
     float m = kNone;
     for (int c = lane; c < w; c += 32) {
-      const float s = sdnet::plateau_nms_at(sig, y, c, h, w);
+      const float s = plateau_nms_at(sig, y, c, h, w);
       sup[y * w + c] = s;
       m = fmaxf(m, s);
     }

@@ -41,6 +41,7 @@ _SIGNATURES = {
     "sigmoid_nms_topk": {
         "sdnet_sigmoid_nms_topk": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
         + [ctypes.c_void_p],
+        "sdnet_topk_candidate_slots": [ctypes.c_int] * 3,
     },
     "sigmoid_nms_topk_rowmax": {
         "sdnet_sigmoid_nms_topk_rowmax": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4

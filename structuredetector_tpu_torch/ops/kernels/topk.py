@@ -4,8 +4,12 @@ plane.
 The port of `structuredetector_tpu/ops/pallas/topk.py::
 fused_sigmoid_nms_topk`, with its two variants:
 
-- "rounds" (the default), kernel B (`csrc/sigmoid_nms_topk.cu`): k rounds
-  of a block-wide reduction over the suppressed plane;
+- "rounds" (the default), kernel B (`csrc/sigmoid_nms_topk.cu`): an
+  exact two-phase selection. Phase 1 runs the tiled front of kernel A
+  (`csrc/sigmoid_nms_front.cuh`) and writes each tile's best
+  min(k, pixels) keys, sorted, to a candidate buffer whose size the
+  library gives; phase 2 merges the tiles' lists of each plane by rank. The name is the Pallas variant's: kernel B no longer
+  runs rounds;
 - "onehot", kernel C (`csrc/sigmoid_nms_topk_rowmax.cu`): k rounds over a
   per-row-max table, one warp, rescanning only the winning row.
 
@@ -28,18 +32,11 @@ from .nms import sigmoid_nms_reference
 
 MAX_PLANE_PIXELS = 256 * 256  # a 1024x1024 input at stride 4
 # Dynamic shared memory a block may use on sm_90 is 227 KiB, less ~1 KiB
-# for each kernel's own. Kernel B needs 8 bytes a pixel (sigmoid +
-# suppressed plane), kernel C 4 more a row (its rowmax table); a plane
-# that needs more uses a global scratch buffer instead.
+# for the kernel's own. Kernel C needs 8 bytes a pixel (sigmoid +
+# suppressed plane) and 4 a row (its rowmax table); a plane that needs
+# more uses a global scratch buffer instead.
 _SHARED_BYTES = 227 * 1024 - 1024
-
-# variant -> (library in csrc/, C entry point, floats a plane needs beside
-# the logits: f(h, w))
-_VARIANTS = {
-    "rounds": ("sigmoid_nms_topk", "sdnet_sigmoid_nms_topk", lambda h, w: 2 * h * w),
-    "onehot": ("sigmoid_nms_topk_rowmax", "sdnet_sigmoid_nms_topk_rowmax",
-               lambda h, w: 2 * h * w + h),
-}
+_VARIANTS = ("rounds", "onehot")
 
 
 def sigmoid_nms_topk_reference(planes: torch.Tensor, k: int):
@@ -83,21 +80,41 @@ def sigmoid_nms_topk(planes: torch.Tensor, k: int, variant: str = "rounds"):
     inds = torch.empty((n, k), dtype=torch.int32, device=planes.device)
     if n == 0:
         return vals, inds
-    source, entry, floats = _VARIANTS[variant]
-    scratch = None
-    if 4 * floats(h, w) > _SHARED_BYTES:
-        scratch = torch.empty((n, floats(h, w)), dtype=torch.float32, device=planes.device)
-    fn = getattr(load(source), entry)
     with torch.cuda.device(planes.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(planes.data_ptr(), vals.data_ptr(), inds.data_ptr(),
-                 None if scratch is None else scratch.data_ptr(),
-                 n, h, w, k, stream)
-    if err:
-        raise RuntimeError(
-            f"sigmoid_nms_topk ({variant}) kernel launch failed: CUDA error {err}")
+        if variant == "rounds":
+            _launch_two_phase(planes, k, vals, inds)
+        else:
+            _launch_rowmax(planes, k, vals, inds)
     sigmoid_nms_topk.launches_by_variant[variant] += 1
     return vals, inds
+
+
+def _launch_two_phase(planes, k, vals, inds) -> None:
+    n, h, w = planes.shape
+    lib = load("sigmoid_nms_topk")
+    # the candidate buffer: the library knows its tiling; phase 1 writes
+    # every slot
+    cand = torch.empty((n, lib.sdnet_topk_candidate_slots(h, w, k)), dtype=torch.int64,
+                       device=planes.device)
+    err = lib.sdnet_sigmoid_nms_topk(
+        planes.data_ptr(), cand.data_ptr(), vals.data_ptr(), inds.data_ptr(), n, h, w, k,
+        torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"sigmoid_nms_topk (rounds) kernel launch failed: CUDA error {err}")
+
+
+def _launch_rowmax(planes, k, vals, inds) -> None:
+    n, h, w = planes.shape
+    floats = 2 * h * w + h
+    scratch = None
+    if 4 * floats > _SHARED_BYTES:
+        scratch = torch.empty((n, floats), dtype=torch.float32, device=planes.device)
+    err = load("sigmoid_nms_topk_rowmax").sdnet_sigmoid_nms_topk_rowmax(
+        planes.data_ptr(), vals.data_ptr(), inds.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), n, h, w, k,
+        torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"sigmoid_nms_topk (onehot) kernel launch failed: CUDA error {err}")
 
 
 # launches of each variant's kernel

@@ -18,8 +18,10 @@ from structuredetector_tpu_torch.ops.kernels import (
     launch_counts,
     reset_launch_counts,
     sigmoid_nms,
+    sigmoid_nms_reference,
     sigmoid_nms_topk,
 )
+from structuredetector_tpu_torch.ops.tensor import select_topk
 
 
 def _nchw(x: np.ndarray) -> torch.Tensor:
@@ -60,6 +62,8 @@ def test_sigmoid_nms_peaks_survive():
         ((2, 24, 40, 3), 7),
         ((5, 16, 16, 2), 6),
         ((25, 16, 16, 2), 4),
+        ((1, 40, 72, 2), 9),  # ragged 32 x 64 tiles
+        ((1, 33, 65, 1), 9),
     ],
 )
 def test_sigmoid_nms_topk_matches_pallas(rng, shape, k, variant):
@@ -149,3 +153,93 @@ def test_launch_counts_name_every_kernel_and_reset():
     reset_launch_counts()
     assert launch_counts() == {"sigmoid_nms": 0, "sigmoid_nms_topk": 0,
                                "sigmoid_nms_topk_rowmax": 0}
+
+
+def test_sigmoid_nms_on_ragged_tiles_matches_pallas(rng):
+    """Planes whose edges cut kernel A's 32-wide, 64-tall tiles."""
+    for shape in ((1, 33, 65, 2), (1, 70, 40, 1)):
+        x = rng.normal(0, 3, size=shape).astype(np.float32)
+        want = np.asarray(fused_sigmoid_nms(jnp.asarray(x), interpret=True))
+        got = np.transpose(sigmoid_nms(_nchw(x)).numpy(), (0, 2, 3, 1))
+        np.testing.assert_array_equal(got > 0, want > 0)
+        np.testing.assert_allclose(got, want, atol=1e-6)
+
+
+# ---- kernel B's two-phase selection, mimicked in plain torch ----------------
+
+def _keys(sup: torch.Tensor) -> torch.Tensor:
+    """(N, H, W) suppressed values -> int64 keys (value bits << 32) |
+    (0xFFFFFFFF - flat index), as kernel B packs them."""
+    n, h, w = sup.shape
+    bits = sup.contiguous().view(torch.int32).to(torch.int64)
+    flat = torch.arange(h * w, dtype=torch.int64).reshape(h, w)
+    return (bits << 32) | (0xFFFFFFFF - flat)
+
+
+def _two_phase(sup: torch.Tensor, k: int, tile_h: int, tile_w: int):
+    """Phase 1: each tile's best min(k, pixels) keys, sorted, 0 after
+    (cells past the ragged edge are key 0); phase 2: every candidate's
+    rank is the number of candidates above it, and rank r < k is output
+    r. Returns (values, flat indices) as the kernel does."""
+    n, h, w = sup.shape
+    ty, tx = -(-h // tile_h), -(-w // tile_w)
+    cap = min(k, min(h, tile_h) * min(w, tile_w))
+    keys = torch.zeros((n, ty * tile_h, tx * tile_w), dtype=torch.int64)
+    keys[:, :h, :w] = _keys(sup)
+    tiles = keys.reshape(n, ty, tile_h, tx, tile_w).permute(0, 1, 3, 2, 4)
+    tiles = tiles.reshape(n, ty * tx, tile_h * tile_w)
+    valid = (tiles != 0).sum(-1, keepdim=True)
+    best = torch.sort(tiles, dim=-1, descending=True).values[..., :cap]
+    slot = torch.arange(cap)
+    cand = torch.where(slot < torch.clamp(valid, max=k), best, torch.zeros_like(best))
+    flat = cand.reshape(n, -1)
+    rank = (flat[:, None, :] > flat[:, :, None]).sum(-1)
+    out = torch.zeros((n, k), dtype=torch.int64)
+    for p in range(n):
+        hit = (flat[p] != 0) & (rank[p] < k)
+        out[p, rank[p][hit]] = flat[p][hit]
+    assert (out != 0).all(), "every output slot written once"
+    vals = (out >> 32).to(torch.int32).view(torch.float32)
+    inds = (0xFFFFFFFF - (out & 0xFFFFFFFF)).to(torch.int32)
+    return vals, inds
+
+
+def _tile_cases():
+    rng = np.random.default_rng(926354916)
+    border = rng.normal(0, 3, (1, 70, 40)).astype(np.float32)
+    border[:, 60:68, 28:36] = 20.0  # one plateau across tile borders (rows 64, column 32)
+    yy, xx = np.mgrid[0:70, 0:40]
+    cone = (5.0 - np.hypot(yy - 30, xx - 20) / 20.0).astype(np.float32)[None]
+    saturated = np.full((2, 70, 40), -20.0, np.float32)  # clamps to 1e-6: every pixel a peak
+    saturated[0, 10, 12] = saturated[1, 50, 30] = 2.0
+    return {
+        "random": (rng.normal(0, 3, (3, 70, 40)).astype(np.float32), 20),
+        "saturated background, one peak": (saturated, 20),
+        "all-equal": (np.zeros((1, 70, 40), np.float32), 30),
+        "plateau across tile borders": (border, 40),
+        "ragged 40x72": (rng.normal(0, 3, (2, 40, 72)).astype(np.float32), 9),
+        "ragged 33x65": (rng.normal(0, 3, (2, 33, 65)).astype(np.float32), 9),
+        "one peak, k > a tile's pixels": (cone, 2100),
+        "k = H * W": (rng.normal(0, 3, (1, 33, 65)).astype(np.float32), 33 * 65),
+    }
+
+
+@pytest.mark.parametrize("tile", [(64, 32), (8, 4), (7, 5)],
+                         ids=["kernel-tiles", "8x4-tiles", "7x5-tiles"])
+@pytest.mark.parametrize("case", list(_tile_cases()))
+def test_two_phase_selection_is_exact(case, tile):
+    """The union of each tile's top min(k, pixels), merged by rank, is the
+    plane's top k: held to select_topk on the same suppressed planes
+    (exactly) and to the Pallas kernel (indices exactly; values to an ulp
+    of XLA's sigmoid), at kernel B's tiles (64 tall, 32 wide), at small
+    ones and at 7x5 tiles, ragged on every plane here: the merge is exact
+    for any tiling."""
+    planes, k = _tile_cases()[case]
+    sup = sigmoid_nms_reference(torch.from_numpy(planes).unsqueeze(1)).squeeze(1)
+    got_v, got_i = _two_phase(sup, k, *tile)
+    want_v, want_i = select_topk(sup.reshape(sup.shape[0], -1), k)
+    torch.testing.assert_close(got_v, want_v, rtol=0, atol=0)
+    torch.testing.assert_close(got_i, want_i.to(torch.int32), rtol=0, atol=0)
+    pallas_v, pallas_i = fused_sigmoid_nms_topk(jnp.asarray(planes), k, interpret=True)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(pallas_i))
+    np.testing.assert_allclose(got_v.numpy(), np.asarray(pallas_v), atol=1e-6)
