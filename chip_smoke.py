@@ -13,16 +13,18 @@ of JAX or of the JAX package. Phases, one JSON line each:
    sigmoid_nms_topk_rowmax) bit-exact against its plain PyTorch version
    at the main paths' shapes and on the tiling's edge cases (ragged
    tiles, a plateau across tile borders, k above a tile's pixels,
-   256x256, more than 32 tiles, 1x1, a saturated background), and
-   times kernel, plain version and yardstick with CUDA events, kernels B
-   and C on random and on saturated-background planes: kernel B also by
-   phase (tile selection, merge, the gap between them; from a
-   torch.profiler trace) and t(k) for k = 1, 20, 40, each kernel's share
-   of its bound, and the SM clock and power of the timed card sampled
-   beside the window;
+   256x256, more than 32 tiles, 1x1, a saturated background, thin
+   planes 1x4096, 4096x1 and 65536x1), and times kernel, plain version
+   and yardstick with CUDA events, kernels B and C on random and on
+   saturated-background planes: kernel B also by phase (tile selection,
+   merge, the gap between them; from a torch.profiler trace), t(k) for
+   k = 1, 20, 40 and from it kernel C's cost a round, kernel C's cluster
+   occupancy (cudaOccupancyMaxActiveClusters) at the serving shapes,
+   each kernel's share of its bound, and the SM clock and power of the
+   timed card sampled beside the window;
    with `--parent DIR` (a checkout of another commit), also that
-   checkout's kernels A and B, called through its own public wrappers,
-   against these, in turns (old, new, new, old);
+   checkout's kernels A, B and C, called through its own public
+   wrappers, against these, in turns (old, new, new, old);
 4. serve (main path of kernels A and B): a full-width SDNet (resnet34,
    fpn_depth 128, 512x512, bf16, labels.json) behind the port's
    micro-batching HTTP server answers concurrent PNG POSTs; the Decoder
@@ -209,10 +211,12 @@ def kernel_trace(fn, first: str, second: str, iters: int = 50) -> dict:
 
 
 def edge_cases(rng):
-    """(planes, k) where the 32-wide, 64-tall tiling of kernels A and B has
-    edges to get wrong: ragged tiles, a plateau across a tile border, k
+    """(planes, k) where the 32-wide, 64-tall tiling of kernels A, B and C
+    has edges to get wrong: ragged tiles, a plateau across a tile border, k
     above a tile's pixels on a plane with one peak, a 256x256 plane and one
-    of more than 32 tiles, a 1x1 plane with k = 1."""
+    of more than 32 tiles, a 1x1 plane with k = 1, and thin planes, on
+    which a layout sized by rows or by whole tiles breaks (33x65 and 1x1
+    also leave some of kernel C's cluster without a tile)."""
     import numpy as np
     import torch
 
@@ -229,7 +233,9 @@ def edge_cases(rng):
                                                2100),
             "256x256, 32 tiles": (logits(4, 256, 256), 40),
             "65x1008, 64 tiles": (logits(2, 65, 1008), 40),
-            "1x1, k=1": (logits(3, 1, 1), 1)}
+            "1x1, k=1": (logits(3, 1, 1), 1),
+            "thin 1x4096": (logits(2, 1, 4096), 40), "thin 4096x1": (logits(2, 4096, 1), 40),
+            "thin 65536x1": (logits(1, 65536, 1), 40)}
 
 
 def phase_kernels(card: str) -> dict:
@@ -243,6 +249,7 @@ def phase_kernels(card: str) -> dict:
         sigmoid_nms_topk,
         sigmoid_nms_topk_reference,
     )
+    from structuredetector_tpu_torch.ops.kernels._build import load
 
     rng = np.random.default_rng(926354916)
 
@@ -352,12 +359,22 @@ def phase_kernels(card: str) -> dict:
                 "saturated_ms": sat_ms, "saturated_ms_runs": topk[variant, "saturated"],
                 "saturated_bound_share": topk_bound / sat_ms}
 
+    # kernel C: the cost of a round from t(k) on the 64 anchor planes, and
+    # the clusters of 8 blocks the card holds at once at the serving shapes
+    c_by_k = by_k["onehot"]
+    us_per_round = (c_by_k[40] - c_by_k[1]) / 39 * 1e3
+    clusters = {f"{n}x128x128": load("sigmoid_nms_topk_rowmax").sdnet_rowmax_active_clusters(
+        n, 128, 128) for n in (64, 32)}
+    if min(clusters.values()) < 1:
+        raise AssertionError(f"cudaOccupancyMaxActiveClusters failed: {clusters}")
+
     result = {
         "sigmoid_nms": {"max_abs_err": err_a, "ms": a_ms, "plain_ms": a_plain,
                         "bound_ms": a_bound, "bound_by": a_by, "bound_share": a_bound / a_ms,
                         "library_ms": None, "copy_same_bytes_ms": a_copy},
         "sigmoid_nms_topk": {**topk_entry("rounds"), "phases_ms": split},
-        "sigmoid_nms_topk_rowmax": topk_entry("onehot"),
+        "sigmoid_nms_topk_rowmax": {**topk_entry("onehot"), "us_per_round": us_per_round,
+                                    "active_clusters": clusters},
     }
     emit({"phase": "kernels", "card": card, "bit_exact": True, "cases": list(cases),
           "timed_work": "one served batch of 32 at 512x512: anchors (32,2,128,128) + "
@@ -388,11 +405,12 @@ def _import_checkout(parent: Path):
 
 
 def phase_parent(card: str, parent: Path) -> dict:
-    """Kernels A and B of another checkout (the parent commit), built from
-    its csrc/ and called through its public wrappers `sigmoid_nms` and
-    `sigmoid_nms_topk`, against this checkout's, in turns (old, new, new,
-    old) at the batch-32 work: A on random logits, B on random and on
-    saturated-background planes. Both must give the same outputs."""
+    """Kernels A, B and C of another checkout (the parent commit), built
+    from its csrc/ and called through its public wrappers `sigmoid_nms`
+    and `sigmoid_nms_topk` (C as `variant="onehot"`), against this
+    checkout's, in turns (old, new, new, old) at the batch-32 work: A on
+    random logits, B and C on random and on saturated-background planes.
+    Both must give the same outputs."""
     import numpy as np
     import torch
 
@@ -408,20 +426,25 @@ def phase_parent(card: str, parent: Path) -> dict:
     for x in (anchors, parts):
         if not torch.equal(old.sigmoid_nms(x), new.sigmoid_nms(x)):
             raise AssertionError("the parent's kernel A and this one disagree")
+    variants = {"B": "rounds", "C": "onehot"}
     for xa, xp in traffic.values():
         for x, k in ((xa, 20), (xp, 40)):
-            for o, n in zip(old.sigmoid_nms_topk(x, k), new.sigmoid_nms_topk(x, k)):
-                if not torch.equal(o, n):
-                    raise AssertionError("the parent's kernel B and this one disagree")
+            for kernel, variant in variants.items():
+                got = zip(old.sigmoid_nms_topk(x, k, variant=variant),
+                          new.sigmoid_nms_topk(x, k, variant=variant))
+                if not all(torch.equal(o, n) for o, n in got):
+                    raise AssertionError(f"the parent's kernel {kernel} and this one disagree")
 
-    def topk(mod, t):
+    def topk(mod, t, variant):
         xa, xp = traffic[t]
-        return lambda: (mod.sigmoid_nms_topk(xa, 20), mod.sigmoid_nms_topk(xp, 40))
+        return lambda: (mod.sigmoid_nms_topk(xa, 20, variant=variant),
+                        mod.sigmoid_nms_topk(xp, 40, variant=variant))
 
     work = {"A": {"old": lambda: (old.sigmoid_nms(anchors), old.sigmoid_nms(parts)),
                   "new": lambda: (new.sigmoid_nms(anchors), new.sigmoid_nms(parts))}}
-    for t in traffic:
-        work[f"B {t}"] = {"old": topk(old, t), "new": topk(new, t)}
+    for kernel, variant in variants.items():
+        for t in traffic:
+            work[f"{kernel} {t}"] = {"old": topk(old, t, variant), "new": topk(new, t, variant)}
     result, clocks = {}, {}
     with sampled_clocks(clocks):
         for kernel, fns in work.items():
@@ -817,8 +840,8 @@ def main(argv=None) -> int:
     p.add_argument("--load_model", type=Path, default=None,
                    help="a .pth or .msgpack to run instead of the seeded init")
     p.add_argument("--parent", type=Path, default=None,
-                   help="another checkout (the parent commit): also time its kernels A "
-                        "and B, through its public wrappers, against this one's, in turns")
+                   help="another checkout (the parent commit): also time its kernels A, "
+                        "B and C, through its public wrappers, against this one's, in turns")
     args = p.parse_args(argv)
 
     import torch
@@ -855,7 +878,8 @@ def main(argv=None) -> int:
                                     "structuredetector_tpu/ops/pallas/topk.py:116"),
     }
     extra = ("topk_partial_ms", "ms_by_k_64_planes", "ms_runs", "phases_ms",
-             "copy_same_bytes_ms", "saturated_ms", "saturated_ms_runs", "saturated_bound_share")
+             "copy_same_bytes_ms", "saturated_ms", "saturated_ms_runs", "saturated_bound_share",
+             "us_per_round", "active_clusters")
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": sum(counts[name] for counts in by_path.values()),

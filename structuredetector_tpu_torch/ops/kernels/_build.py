@@ -44,8 +44,9 @@ _SIGNATURES = {
         "sdnet_topk_candidate_slots": [ctypes.c_int] * 3,
     },
     "sigmoid_nms_topk_rowmax": {
-        "sdnet_sigmoid_nms_topk_rowmax": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+        "sdnet_sigmoid_nms_topk_rowmax": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
         + [ctypes.c_void_p],
+        "sdnet_rowmax_active_clusters": [ctypes.c_int] * 3,
     },
 }
 

@@ -8,10 +8,15 @@ fused_sigmoid_nms_topk`, with its two variants:
   exact two-phase selection. Phase 1 runs the tiled front of kernel A
   (`csrc/sigmoid_nms_front.cuh`) and writes each tile's best
   min(k, pixels) keys, sorted, to a candidate buffer whose size the
-  library gives; phase 2 merges the tiles' lists of each plane by rank. The name is the Pallas variant's: kernel B no longer
-  runs rounds;
-- "onehot", kernel C (`csrc/sigmoid_nms_topk_rowmax.cu`): k rounds over a
-  per-row-max table, one warp, rescanning only the winning row.
+  library gives; phase 2 merges the tiles' lists of each plane by rank.
+  The name is the Pallas variant's: kernel B no longer runs rounds;
+- "onehot", kernel C (`csrc/sigmoid_nms_topk_rowmax.cu`): one launch, a
+  cluster of 8 blocks a plane. Each block runs the same tiled front on
+  its share of the plane's tiles and keeps the suppressed values in its
+  own shared memory; rank 0 holds a table of the maxima of 32-pixel runs
+  of flat index, and one warp runs the k rounds over it (winning run,
+  one read of that run, mask, repair of its entry). Every plane the
+  wrapper accepts fits on chip: no scratch buffer.
 
 Both compute one function, so both have one plain version: values and
 flat indices y * W + x equal `select_topk(plateau_nms(clamped_sigmoid(x)))`,
@@ -31,11 +36,6 @@ from ._build import load
 from .nms import sigmoid_nms_reference
 
 MAX_PLANE_PIXELS = 256 * 256  # a 1024x1024 input at stride 4
-# Dynamic shared memory a block may use on sm_90 is 227 KiB, less ~1 KiB
-# for the kernel's own. Kernel C needs 8 bytes a pixel (sigmoid +
-# suppressed plane) and 4 a row (its rowmax table); a plane that needs
-# more uses a global scratch buffer instead.
-_SHARED_BYTES = 227 * 1024 - 1024
 _VARIANTS = ("rounds", "onehot")
 
 
@@ -105,13 +105,8 @@ def _launch_two_phase(planes, k, vals, inds) -> None:
 
 def _launch_rowmax(planes, k, vals, inds) -> None:
     n, h, w = planes.shape
-    floats = 2 * h * w + h
-    scratch = None
-    if 4 * floats > _SHARED_BYTES:
-        scratch = torch.empty((n, floats), dtype=torch.float32, device=planes.device)
     err = load("sigmoid_nms_topk_rowmax").sdnet_sigmoid_nms_topk_rowmax(
-        planes.data_ptr(), vals.data_ptr(), inds.data_ptr(),
-        None if scratch is None else scratch.data_ptr(), n, h, w, k,
+        planes.data_ptr(), vals.data_ptr(), inds.data_ptr(), n, h, w, k,
         torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"sigmoid_nms_topk (onehot) kernel launch failed: CUDA error {err}")

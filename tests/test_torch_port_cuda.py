@@ -25,11 +25,14 @@ def _logits(rng, *shape):
 
 
 def _edge_cases(rng):
-    """(planes, k) on the card where the tiling of kernels A and B (32-wide,
-    64-tall tiles) has edges to get wrong: ragged tiles, a plateau across a
-    tile border, k above a tile's pixels on a plane with one peak, a
-    256x256 plane and one of more than 32 tiles, a 1x1 plane; and a
-    saturated background with one peak, the select's plateau path."""
+    """(planes, k) on the card where the tiling of kernels A, B and C
+    (32-wide, 64-tall tiles) has edges to get wrong: ragged tiles, a plateau
+    across a tile border, k above a tile's pixels on a plane with one peak,
+    a 256x256 plane and one of more than 32 tiles, a 1x1 plane; a
+    saturated background with one peak, the select's plateau path; and
+    thin planes (1x4096, 4096x1, 65536x1), on which a layout sized by rows
+    or by 64x32 tiles breaks. 33x65 and 1x1 give kernel C clusters in
+    which some blocks own no tile."""
     border = _logits(rng, 2, 128, 128)
     border[:, 60:68, 28:36] = 20.0  # clamps to 1 - 1e-6: one plateau over 4 tiles
     yy, xx = np.mgrid[0:128, 0:128]
@@ -45,6 +48,9 @@ def _edge_cases(rng):
         (_logits(rng, 4, 256, 256), 40),
         (_logits(rng, 2, 65, 1008), 40),
         (_logits(rng, 3, 1, 1), 1),
+        (_logits(rng, 2, 1, 4096), 40),
+        (_logits(rng, 2, 4096, 1), 40),
+        (_logits(rng, 1, 65536, 1), 40),
     ]
 
 
@@ -127,3 +133,31 @@ def test_topk_variant_launch_counts_on_card():
     after = sigmoid_nms_topk.launches_by_variant
     assert after["onehot"] - before["onehot"] == 2
     assert after["rounds"] - before["rounds"] == 1
+
+
+@pytest.mark.cuda
+def test_rowmax_is_one_launch_a_call():
+    """Kernel C is one kernel launch a call on every plane shape it takes,
+    thin and partial clusters included: no scratch buffer, no second
+    phase. Counted from a torch.profiler (CUPTI) trace of the card, as
+    chip_smoke.kernel_trace reads it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(5)
+    shapes = [((64, 128, 128), 20), ((4, 256, 256), 40), ((1, 65536, 1), 40),
+              ((2, 1, 4096), 40), ((3, 33, 65), 9), ((3, 1, 1), 1)]
+    inputs = [(_logits(rng, *shape), k) for shape, k in shapes]
+    for x, k in inputs:
+        sigmoid_nms_topk(x, k, variant="onehot")  # build and warm up
+    torch.cuda.synchronize()
+    for x, k in inputs:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                sigmoid_nms_topk(x, k, variant="onehot")
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        assert len(names) == 3, (tuple(x.shape), names)
+        assert all("rowmax_topk_kernel" in name for name in names), names

@@ -243,3 +243,108 @@ def test_two_phase_selection_is_exact(case, tile):
     pallas_v, pallas_i = fused_sigmoid_nms_topk(jnp.asarray(planes), k, interpret=True)
     np.testing.assert_array_equal(got_i.numpy(), np.asarray(pallas_i))
     np.testing.assert_allclose(got_v.numpy(), np.asarray(pallas_v), atol=1e-6)
+
+
+# ---- kernel C's cluster selection, mimicked in plain torch ------------------
+
+_CLUSTER = 8  # blocks a plane
+_LANES = 32
+
+
+def _cluster_rounds(sup: torch.Tensor, k: int, run: int, tile_h: int = 64, tile_w: int = 32):
+    """Kernel C's route over (N, H, W) suppressed values. The front: tile t
+    goes to cluster rank t % 8 and lies in its slot t // 8, rows at a pitch
+    of min(W, tile_w); table entry s is the max of flat indices
+    [run * s, run * s + run), folded in tile by tile (atomicMax). Then k
+    rounds: the winning run (max, then smallest run, from each lane's
+    cached best of its slice of a power-of-two length), a read of that run
+    from the blocks that own its pixels, the winning column, the mask (-1)
+    stored there, the run's entry rewritten and the best of its slice
+    renewed. Values are compared as int32 bits, as the kernel does. Returns
+    (values, flat indices)."""
+    n_planes, h, w = sup.shape
+    n = h * w
+    tiles_x = -(-w // tile_w)
+    tiles = -(-h // tile_h) * tiles_x
+    slot_w, slots = min(w, tile_w), -(-tiles // _CLUSTER)
+    slot_px = min(h, tile_h) * slot_w
+    runs = -(-n // run)
+    per = 4  # entries a lane caches: a power of two, at least 4
+    while _LANES * per < runs:
+        per *= 2
+    bits = sup.contiguous().view(torch.int32)
+    flat = torch.arange(n).reshape(h, w)
+    out_v = torch.empty((n_planes, k), dtype=torch.int32)
+    out_i = torch.empty((n_planes, k), dtype=torch.int32)
+
+    def owner(q):
+        y, c = divmod(q, w)
+        t = (y // tile_h) * tiles_x + c // tile_w
+        return t % _CLUSTER, (t // _CLUSTER) * slot_px + (y % tile_h) * slot_w + c % tile_w
+
+    for p in range(n_planes):
+        smem = torch.full((_CLUSTER, slots * slot_px), -1, dtype=torch.int32)
+        table = torch.full((runs,), -1, dtype=torch.int32)
+        for t in range(tiles):
+            oy, ox = (t // tiles_x) * tile_h, (t % tiles_x) * tile_w
+            block = bits[p, oy:oy + tile_h, ox:ox + tile_w]
+            vh, vw = block.shape
+            base = (t // _CLUSTER) * slot_px
+            smem[t % _CLUSTER, base:base + vh * slot_w].view(vh, slot_w)[:, :vw] = block
+            runs_of = flat[oy:oy + vh, ox:ox + vw].reshape(-1) // run
+            table.scatter_reduce_(0, runs_of, block.reshape(-1), "amax")
+        padded = torch.full((runs * run,), -1, dtype=torch.int32)
+        padded[:n] = bits[p].reshape(-1)
+        assert torch.equal(table, padded.reshape(runs, run).amax(1)), "an entry is its run's max"
+        smem, table = smem.tolist(), table.tolist()
+
+        def best(lane):
+            sl = table[lane * per:(lane + 1) * per]
+            if not sl:
+                return -2**31, 0
+            top = max(sl)
+            return top, lane * per + sl.index(top)
+
+        cache = [best(lane) for lane in range(_LANES)]
+        for r in range(k):
+            top = max(v for v, _ in cache)
+            lane = [v for v, _ in cache].index(top)  # the lowest lane: the smallest run
+            s = cache[lane][1]
+            qs = [q for q in range(s * run, s * run + run) if q < n]
+            where = [owner(q) for q in qs]
+            vals = [smem[rank][off] for rank, off in where]
+            col = vals.index(top)
+            rank, off = where[col]
+            smem[rank][off] = -1
+            table[s] = max([v for i, v in enumerate(vals) if i != col], default=-1)
+            cache[lane] = best(lane)
+            out_v[p, r], out_i[p, r] = top, qs[col]
+    return out_v.view(torch.float32), out_i
+
+
+def _cluster_cases():
+    rng = np.random.default_rng(20240917)
+    return {**_tile_cases(),
+            "thin 1x300": (rng.normal(0, 3, (2, 1, 300)).astype(np.float32), 40),
+            "thin 300x1": (rng.normal(0, 3, (2, 300, 1)).astype(np.float32), 40)}
+
+
+@pytest.mark.parametrize("run", [32, 8, 5], ids=["kernel-runs", "8-runs", "5-runs"])
+@pytest.mark.parametrize("case", list(_cluster_cases()))
+def test_cluster_rounds_selection_is_exact(case, run):
+    """Kernel C's route (tiles split over a cluster of 8, a table of run
+    maxima, k rounds of winning run, rescan, mask and repair) is the
+    plane's top k: held to select_topk on the same suppressed planes
+    (exactly) and to the Pallas "onehot" kernel (indices exactly; values
+    to an ulp of XLA's sigmoid), at the kernel's 32-pixel runs and at runs
+    of 8 and 5 pixels, which cross row ends and tile borders."""
+    planes, k = _cluster_cases()[case]
+    sup = sigmoid_nms_reference(torch.from_numpy(planes).unsqueeze(1)).squeeze(1)
+    got_v, got_i = _cluster_rounds(sup, k, run)
+    want_v, want_i = select_topk(sup.reshape(sup.shape[0], -1), k)
+    torch.testing.assert_close(got_v, want_v, rtol=0, atol=0)
+    torch.testing.assert_close(got_i, want_i.to(torch.int32), rtol=0, atol=0)
+    pallas_v, pallas_i = fused_sigmoid_nms_topk(jnp.asarray(planes), k, interpret=True,
+                                                variant="onehot")
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(pallas_i))
+    np.testing.assert_allclose(got_v.numpy(), np.asarray(pallas_v), atol=1e-6)
