@@ -42,7 +42,16 @@ of JAX or of the JAX package. Phases, one JSON line each:
    sweep's first summary must equal a run without the sweep, and both
    kernels' launch counters must rise. Reports images/s of both;
 7. reference: a small fp32 model on the card agrees with the same model
-   on the CPU.
+   on the CPU;
+8. train (main path of kernel A): the train step at full width (bf16,
+   device augmentation, uint8 feed, every keypoint slot filled) timed at
+   batch 8 and 32 with CUDA events (ms, img/s, peak memory, finite loss,
+   its FLOPs' share of the dense bf16 peak); 30 steps on one batch must
+   cut the loss below 0.7 of the first; `cli.train` for 2 epochs on 64
+   annotated PNGs (16 to validate, kernel A's counter must rise), then
+   `cli.evaluate` on the `model_best_loss.msgpack` it wrote; one fp32
+   step of a small model on the card against the CPU (loss within 1e-4
+   relative, gradients within the bars stated there).
 
 Each main path is driven with the launch counts set to 0 just before it
 and read just after. Then the `{"kernels": [...]}` line, the nvidia-smi
@@ -58,6 +67,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import math
 import os
 import sys
 import tempfile
@@ -77,6 +87,8 @@ FP32_OPS_PER_S = 67e12
 FRONT_OPS_PER_PIXEL = 31
 # kernel B adds a linear-time selection: one comparison a pixel
 SELECT_OPS_PER_PIXEL = 1
+# dense bf16 tensor-core peak of the same data sheet, for the train step
+BF16_DENSE_OPS_PER_S = 989e12
 
 
 def emit(obj) -> None:
@@ -835,6 +847,261 @@ def phase_evaluate_detect(card: str, load_model) -> dict:
     return launches
 
 
+def _train_batch(cfg, b: int, seed: int, normalized: bool):
+    """A batch on the card with every keypoint slot filled: `max_objects`
+    anchors and `max_parts` parts (two owned by each anchor), images
+    uint8, or ImageNet-normalized float32 with `normalized`."""
+    import numpy as np
+    import torch
+
+    from structuredetector_tpu_torch.ops.device_augment import normalize_images
+
+    rng = np.random.default_rng(seed)
+    # grid coordinates of input pixels clipped to [0, size - 1], as
+    # `flatten_annotation` makes them
+    top = np.array([cfg.width - 1, cfg.height - 1]) / cfg.down_ratio
+    o, p = cfg.max_objects, cfg.max_parts
+    anchors = rng.uniform(0, top, (b, o, 2)).astype(np.float32)
+    owners = np.repeat(anchors, -(-p // o), axis=1)[:, :p]
+    kp = {
+        "anchors_xy": anchors,
+        "anchor_cls": rng.integers(0, cfg.n_labels, (b, o)).astype(np.int32),
+        "anchor_mask": np.ones((b, o), bool),
+        "parts_xy": np.clip(owners + rng.normal(0, 3, owners.shape), 0, top).astype(np.float32),
+        "part_kind": rng.integers(0, cfg.n_parts, (b, p)).astype(np.int32),
+        "part_owner_xy": owners,
+        "part_mask": np.ones((b, p), bool),
+    }
+    kp = {k: torch.from_numpy(v).cuda() for k, v in kp.items()}
+    images = torch.from_numpy(rng.integers(0, 256, (b, cfg.height, cfg.width, 3), np.uint8))
+    images = images.cuda()
+    if normalized:
+        images = normalize_images(images.float() / 255.0)
+    return images, kp
+
+
+def _time_train_steps(cfg, b: int, warmup: int = 5, iters: int = 20) -> dict:
+    """ms a train step at batch `b` (device augmentation, uint8 feed),
+    peak memory, the FLOPs of one step and their share of the dense bf16
+    peak."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from structuredetector_tpu_torch.models.network import init_model
+    from structuredetector_tpu_torch.train.state import create_train_state
+    from structuredetector_tpu_torch.train.steps import train_step
+
+    state = create_train_state(cfg, init_model(cfg).cuda(), steps_per_epoch=1000)
+    images, kp = _train_batch(cfg, b, seed=b, normalized=False)
+    for _ in range(warmup):
+        train_step(state, images, kp, cfg, augment=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(iters):
+        stats = train_step(state, images, kp, cfg, augment=True)
+    end.record()
+    end.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / iters
+    ms = start.elapsed_time(end) / iters
+    loss = float(stats["total_loss"])
+    peak = torch.cuda.max_memory_allocated()
+    with FlopCounterMode(display=False) as counter:
+        train_step(state, images, kp, cfg, augment=True)
+    flops = counter.get_total_flops()
+    if not math.isfinite(loss):
+        raise AssertionError(f"train step at batch {b}: loss {loss}")
+    return {"batch": b, "ms_per_step": ms, "host_ms_per_step": host_ms,
+            "img_per_s": b * 1e3 / ms, "max_memory_allocated_bytes": peak, "loss": loss,
+            "flops_per_step": flops,
+            "bf16_dense_peak_share": flops / (ms * 1e-3) / BF16_DENSE_OPS_PER_S,
+            **_device_busy(lambda: train_step(state, images, kp, cfg, augment=True), ms)}
+
+
+def _device_busy(step, ms_per_step: float, n: int = 3) -> dict:
+    """A torch.profiler (CUPTI) trace of `n` steps: the card's busy ms a
+    step (kernels, copies and sets; no annotation ranges), its idle share
+    of the unprofiled step time `ms_per_step`, and the 5 kernels that take
+    most of it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / n
+    busy = sum(by_name.values())
+    if not busy:
+        raise AssertionError("the profiler saw no device time in the train steps")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return {"device_busy_ms_per_step": busy, "device_idle_share": 1.0 - busy / ms_per_step,
+            "top_kernels_ms_per_step": [[name[:90], ms] for name, ms in top]}
+
+
+def _write_annotated(directory: Path, n: int, seed: int) -> None:
+    """`n` PNGs of mixed sizes with a JSON annotation beside each: 1-4
+    plants (bean or maize), an "anchor" keypoint and 1-3 leaves each,
+    drawn as discs on coarse noise."""
+    import numpy as np
+    from PIL import Image, ImageDraw
+
+    rng = np.random.default_rng(seed)
+    directory.mkdir(parents=True)
+    sizes = [(640, 480), (512, 512), (800, 600), (333, 517)]
+    for i in range(n):
+        w, h = sizes[i % len(sizes)]
+        coarse = rng.integers(0, 256, (h // 16 + 1, w // 16 + 1, 3), np.uint8)
+        img = Image.fromarray(coarse).resize((w, h), Image.BILINEAR)
+        draw = ImageDraw.Draw(img)
+        objects = []
+        for _ in range(int(rng.integers(1, 5))):
+            ax, ay = float(rng.uniform(20, w - 20)), float(rng.uniform(20, h - 20))
+            draw.ellipse([ax - 9, ay - 9, ax + 9, ay + 9], fill=(200, 60, 60))
+            parts = [{"kind": "anchor", "location": {"x": ax, "y": ay}, "score": None}]
+            for _ in range(int(rng.integers(1, 4))):
+                px = float(np.clip(ax + rng.normal(0, 25), 0, w - 1))
+                py = float(np.clip(ay + rng.normal(0, 25), 0, h - 1))
+                draw.ellipse([px - 5, py - 5, px + 5, py + 5], fill=(220, 220, 60))
+                parts.append({"kind": "leaf", "location": {"x": px, "y": py}, "score": None})
+            objects.append({"label": str(rng.choice(["bean", "maize"])), "box": None,
+                            "parts": parts})
+        img.save(directory / f"im_{i:03d}.png")
+        (directory / f"im_{i:03d}.json").write_text(json.dumps(
+            {"image_path": f"im_{i:03d}.png", "img_size": [w, h], "objects": objects}))
+
+
+def _grad_gap(a, b) -> dict:
+    """Relative L2 distance of two models' gradients: the worst tensor's
+    and the whole's."""
+    import torch
+
+    names = [n for n, _ in a.named_parameters()]
+    ga = {n: p.grad.detach().double().cpu() for n, p in a.named_parameters()}
+    gb = {n: p.grad.detach().double().cpu() for n, p in b.named_parameters()}
+    per = {n: float((ga[n] - gb[n]).norm() / gb[n].norm()) for n in names}
+    whole = float(torch.cat([(ga[n] - gb[n]).flatten() for n in names]).norm()
+                  / torch.cat([gb[n].flatten() for n in names]).norm())
+    worst = max(per, key=per.get)
+    return {"whole": whole, "worst_tensor": worst, "worst": per[worst],
+            "head": per["head.conv.weight"]}
+
+
+def phase_train(card: str) -> dict:
+    """The training path at full width (resnet34, fpn_depth 128, 512x512,
+    bf16, labels.json): the train step timed at batch 8 and 32, an
+    overfit run, `cli.train` then `cli.evaluate` (kernel A in validation),
+    and one fp32 step on the card against the CPU. Returns the launch
+    counts of the `cli.train` run, the main path."""
+    import numpy as np
+    import torch
+
+    from structuredetector_tpu_torch.cli import evaluate, train
+    from structuredetector_tpu_torch.config import Config
+    from structuredetector_tpu_torch.models.network import init_model
+    from structuredetector_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from structuredetector_tpu_torch.train.state import create_train_state
+    from structuredetector_tpu_torch.train.steps import train_step
+
+    t_phase = time.perf_counter()
+    labels = ROOT / "labels.json"
+    cfg = Config(labels_path=labels).finalize()
+    if not (cfg.device_augment and cfg.uint8_feed and cfg.use_amp):
+        raise AssertionError("the defaults must be device augment, uint8 feed, bf16")
+    steps = [_time_train_steps(cfg, b) for b in (8, 32)]
+
+    # overfit one fixed batch, augmentation off (the JAX package's own bar,
+    # tests/test_train.py:85)
+    state = create_train_state(cfg, init_model(cfg).cuda(), steps_per_epoch=1000)
+    images, kp = _train_batch(cfg, 8, seed=3, normalized=True)
+    curve = [float(train_step(state, images, kp, cfg)["total_loss"]) for _ in range(30)]
+    del state
+    if not curve[-1] < 0.7 * curve[0]:
+        raise AssertionError(f"30 steps on one batch did not overfit: {curve}")
+
+    with tempfile.TemporaryDirectory(prefix="sdnet-train-") as tmp:
+        tmp = Path(tmp)
+        _write_annotated(tmp / "train", 64, seed=1)
+        _write_annotated(tmp / "valid", 16, seed=2)
+        # --- the main path: counts set to 0 just before, read just after
+        reset_launch_counts()
+        with _cwd(tmp):
+            t0 = time.perf_counter()
+            trainer = train.main(["--train_dir", str(tmp / "train"), "--valid_dir",
+                                  str(tmp / "valid"), "--labels", str(labels), "--epochs", "2",
+                                  "--eval_batch_size", "16", "--num_workers", "4"])
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+        launches = launch_counts()
+        # --- end of the main path
+        run = tmp / trainer.save_dir
+        snapshots = sorted(p.name for p in run.glob("model_best_*.msgpack"))
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):  # its metric tables
+            evaluators = evaluate.main([
+                "--valid_dir", str(tmp / "valid"), "--labels", str(labels), "--load_model",
+                str(run / "model_best_loss.msgpack"), "--eval_batch_size", "16",
+                "--save_summary", str(tmp / "summary.json")])
+        evaluate_s = time.perf_counter() - t0
+        summary = json.loads((tmp / "summary.json").read_text())
+        step_count, buckets = trainer.state.step, len(trainer.train_augmentation.bucket_sizes())
+        del trainer
+    if not launches["sigmoid_nms"]:
+        raise AssertionError(f"validation did not launch kernel A: {launches}")
+    if "model_best_loss.msgpack" not in snapshots or step_count != 2 * (64 // cfg.batch_size):
+        raise AssertionError(f"cli.train: {step_count} steps, snapshots {snapshots}")
+    if not all(np.isfinite(v) for v in summary.values()) or not evaluators:
+        raise AssertionError(f"cli.evaluate on the trained checkpoint: {summary}")
+
+    # one fp32 step of a small model on the card and on the CPU, same
+    # weights and batch (TF32 off in the forward and the backward)
+    small = Config(width=64, height=64, fpn_depth=32, use_amp=False,
+                   labels_path=labels).finalize()
+    models = {d: init_model(small).to(d) for d in ("cuda", "cpu")}
+    images, kp = _train_batch(small, 8, seed=5, normalized=True)
+    losses = {}
+    for d, model in models.items():
+        state = create_train_state(small, model, steps_per_epoch=1000)
+        losses[d] = float(train_step(state, images.to(d), {k: v.to(d) for k, v in kp.items()},
+                                     small)["total_loss"])
+    loss_rel = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+    gap = _grad_gap(models["cuda"], models["cpu"])  # the step leaves its gradients in .grad
+    emit({"phase": "train", "card": card,
+          "model": f"SDNet resnet34 fpn_depth={cfg.fpn_depth} {cfg.width}x{cfg.height} bf16, "
+                   f"device augment (uint8 feed), max_objects {cfg.max_objects}, "
+                   f"max_parts {cfg.max_parts}, every slot filled, seeded init",
+          "steps": steps, "timing": "CUDA events over 20 steps after 5 warm-up steps; "
+                                    "FLOPs from torch.utils.flop_counter on one step",
+          "bf16_dense_peak_ops_per_s": BF16_DENSE_OPS_PER_S,
+          "overfit_batch8_30_steps": curve,
+          "cli_train": {"train_images": 64, "valid_images": 16, "epochs": 2,
+                        "batch_size": cfg.batch_size, "eval_batch_size": 16,
+                        "steps": step_count, "prewarmed_buckets": buckets,
+                        "wall_s": train_s, "snapshots": snapshots},
+          "cli_evaluate_wall_s": evaluate_s,
+          "evaluate_summary": {k: summary[k] for k in ("anchor/f1_total", "kps/f1_total")},
+          "card_vs_cpu_fp32": {"config": "64x64 fpn_depth=32 fp32 batch 8, TF32 off",
+                               "loss": losses, "loss_rel_err": loss_rel,
+                               "grad_rel_l2": gap},
+          "launches": launches, "seconds": time.perf_counter() - t_phase})
+    if loss_rel > 1e-4:
+        raise AssertionError(f"card and CPU train-step losses differ by {loss_rel:.2e}")
+    # float32 gradients of this net depart from a float64 evaluation by up
+    # to 0.64 % (relative L2) in a tensor on the CPU at this size
+    # (tests/test_torch_port_train_step.py): the bars are 3 % a tensor,
+    # 1 % for the whole gradient and 1e-3 for the head
+    if gap["worst"] > 3e-2 or gap["whole"] > 1e-2 or gap["head"] > 1e-3:
+        raise AssertionError(f"card and CPU gradients differ: {gap}")
+    return launches
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--load_model", type=Path, default=None,
@@ -868,6 +1135,7 @@ def main(argv=None) -> int:
                "topk_variants": phase_topk_variants(card),
                "evaluate_detect": phase_evaluate_detect(card, args.load_model)}
     phase_reference(card)
+    by_path["train"] = phase_train(card)
 
     sources = {
         "sigmoid_nms": ("structuredetector_tpu_torch/csrc/sigmoid_nms.cu",

@@ -356,6 +356,34 @@ def clip_annotation(annotation: ImageAnnotation, img_size) -> ImageAnnotation:
     return annotation
 
 
+def hflip_annotation(annotation: ImageAnnotation, img_size) -> ImageAnnotation:
+    """Mirror x -> W - x - 1 (reference utils.py:384-398; mutates)."""
+    w, _ = img_size
+    for obj in annotation.objects:
+        obj.x = w - obj.x - 1
+        for p in obj.parts:
+            p.x = w - p.x - 1
+        if obj.box is not None:
+            x_max = w - obj.box.x_min - 1
+            x_min = w - obj.box.x_max - 1
+            obj.box.x_min, obj.box.x_max = x_min, x_max
+    return annotation
+
+
+def vflip_annotation(annotation: ImageAnnotation, img_size) -> ImageAnnotation:
+    """Mirror y -> H - y - 1 (reference utils.py:401-415; mutates)."""
+    _, h = img_size
+    for obj in annotation.objects:
+        obj.y = h - obj.y - 1
+        for p in obj.parts:
+            p.y = h - p.y - 1
+        if obj.box is not None:
+            y_max = h - obj.box.y_min - 1
+            y_min = h - obj.box.y_max - 1
+            obj.box.y_min, obj.box.y_max = y_min, y_max
+    return annotation
+
+
 def files_with_extension(folder, extension: str) -> List[Path]:
     return [f for f in Path(folder).iterdir() if f.suffix == extension]
 

@@ -3,10 +3,13 @@
 The port's own copy of `structuredetector_tpu/config.py`: the
 reference's flag names, defaults and invariants
 (`/root/reference/src/sdnet/utils/args.py`), so a reference command
-line works unchanged. The JAX package's TPU knobs (mesh axes, XLA
-caches, int8, alternate backbones and heads) are not part of this port
-yet; `--native_io`/`--no_native_io` are accepted and ignored (the port
-decodes images with PIL). The device is a `--device` flag of each CLI.
+line works unchanged, plus the JAX package's training flags. What the
+port does not do yet is accepted only at its default and raises a
+named error otherwise (`--data_parallel`, `--model_parallel`,
+`--backbone`, `--s2d_stem`, `--head_conv`, `--int8`);
+`--native_io`/`--no_native_io`/`--native_io_fast` and `--compile_cache`
+are accepted and ignored (the port decodes images with PIL and compiles
+nothing ahead). The device is a `--device` flag of each CLI.
 """
 
 from __future__ import annotations
@@ -70,6 +73,35 @@ class Config:
     # bf16 convolutions (autocast) with f32 parameters; False = fp32 with
     # TF32 off
     use_amp: bool = True
+
+    # training runtime (the JAX package's defaults, config.py:72-169)
+    profile: bool = False  # torch.profiler trace of steps 5-10
+    # exit with code 87 when no step completes for this many seconds
+    # (0 = off); resumable with --resume
+    stall_timeout_s: float = 0.0
+    malloc_trim: bool = False  # glibc malloc_trim(0) at each epoch end
+    # per-step EMA decay of the parameters (0 = off); validation and the
+    # best snapshots use the average, saved as ema_params.msgpack
+    ema: float = 0.0
+    # one throwaway step per multi-scale size before the first epoch, so
+    # cuDNN's and the allocator's first use of each shape happens before
+    # the stall watchdog is armed
+    prewarm: bool = True
+    compile_cache: str = ""  # accepted for JAX command lines; no effect
+    device_augment: bool = True  # jitter and flips on the card (--host_augment: PIL)
+    uint8_feed: bool = True  # device augment: ship uint8, /255 on the card
+    flip_prob: float = 0.5  # train-time h and v flip probability
+    pretrained_backbone: bool = False  # --pretrained: cached torchvision resnet34
+    debug_nans: bool = False  # autograd anomaly detection
+    resume_dir: Optional[Path] = None  # trainings/<ts> directory to resume
+
+    # accepted only at these defaults until the port has them
+    data_parallel: int = 0
+    model_parallel: int = 1
+    backbone: str = "resnet34"
+    s2d_stem: bool = False
+    head_conv: int = 0
+    int8: bool = False
 
     seed: int = DEFAULT_SEED
     num_workers: int = -1  # -1 = auto, min(cpu_count, 4) like the reference
@@ -150,6 +182,8 @@ class Config:
             (0 <= self.csi_threshold <= 1, "csi_threshold must be in [0, 1]"),
             (0 < self.sigma_gauss <= 1, "sigma_gauss must be in (0, 1]"),
             (self.eval_batch_size > 0, "eval_batch_size must be > 0"),
+            (0 <= self.ema < 1, f"--ema must be in [0, 1): {self.ema}"),
+            (0 <= self.flip_prob <= 1, f"--flip_prob must be in [0, 1]: {self.flip_prob}"),
         ]
         if self.conf_sweep is not None:
             checks += [
@@ -164,9 +198,33 @@ class Config:
             raise ValueError(
                 f"unknown hm_loss_fn {self.hm_loss_fn!r}: pick 'focal' or 'mse'"
             )
+        not_ported = [
+            (self.data_parallel in (0, 1), f"--data_parallel {self.data_parallel}: "
+             "the port runs on one device (multi-GPU is not ported yet)"),
+            (self.model_parallel == 1, f"--model_parallel {self.model_parallel}: "
+             "the port runs on one device (multi-GPU is not ported yet)"),
+            (self.backbone == "resnet34", f"--backbone {self.backbone}: "
+             "the port has the resnet34 encoder only"),
+            (not self.s2d_stem, "--s2d_stem: the port has the 7x7 stem only"),
+            (self.head_conv == 0, f"--head_conv {self.head_conv}: "
+             "the port has the single 1x1 head only"),
+            (not self.int8, "--int8: int8 inference is not ported yet"),
+        ]
+        for ok, message in not_ported:
+            if not ok:
+                raise ValueError(message)
         if self.num_workers < 0:  # auto: reference num_workers policy (args.py:251)
             self.num_workers = min(os.cpu_count() or 1, 4)
         return self
+
+    def lr_step_epochs(self) -> int:
+        """StepLR step size in epochs: epochs // lr_step, or `epochs`
+        (never) when lr_step == 0 (args.py:213-215)."""
+        return int(self.epochs / self.lr_step) if self.lr_step != 0 else self.epochs
+
+    def grid_size(self, input_size: Optional[Tuple[int, int]] = None) -> Tuple[int, int]:
+        w, h = input_size or self.input_size
+        return int(w / self.down_ratio), int(h / self.down_ratio)
 
     def load_labels(self) -> "Config":
         """Load the name->index maps from the labels JSON
@@ -221,7 +279,8 @@ def build_parser(parser: Optional[argparse.ArgumentParser] = None) -> argparse.A
     p.add_argument("--fpn_depth", type=int, default=d.fpn_depth,
                    help="Depth of FPN layers of the decoder.")
     p.add_argument("--load_model", "-o", dest="pretrained_model", default=None,
-                   help="Load a trained model (a reference-layout torch .pth).")
+                   help="Load a trained model (a reference-layout torch .pth or "
+                        "the JAX package's .msgpack).")
     p.add_argument("--batch_size", "-b", type=int, default=d.batch_size,
                    help="Batch size for training.")
     p.add_argument("--epochs", "-e", type=int, default=d.epochs,
@@ -268,14 +327,64 @@ def build_parser(parser: Optional[argparse.ArgumentParser] = None) -> argparse.A
                         "this flag confirms it; conflicts with --no_amp.")
     p.add_argument("--no_amp", action="store_true",
                    help="Force fp32 compute (TF32 off).")
+    p.add_argument("--pretrained", action="store_true", dest="pretrained_backbone",
+                   help="Warm-start the ResNet34 encoder from a locally cached "
+                        "torchvision ImageNet checkpoint ($SDNET_PRETRAINED, then "
+                        "$TORCH_HOME/hub/checkpoints); nothing is downloaded.")
+    p.add_argument("--data_parallel", type=int, default=d.data_parallel,
+                   help="Devices on the data axis: 0 or 1 (one device) only.")
+    p.add_argument("--model_parallel", type=int, default=d.model_parallel,
+                   help="Devices on the model axis: 1 only.")
+    p.add_argument("--profile", action="store_true",
+                   help="Write a torch.profiler trace of training steps 5-10 to "
+                        "<run dir>/profile.")
+    p.add_argument("--stall_timeout_s", type=float, default=d.stall_timeout_s,
+                   help="Exit with code 87 if no step completes for this many "
+                        "seconds (0 = off). Resumable via --resume.")
+    p.add_argument("--malloc_trim", action="store_true",
+                   help="Call glibc malloc_trim(0) at each epoch end.")
+    p.add_argument("--ema", type=float, default=d.ema,
+                   help="Per-step EMA decay of the parameters (e.g. 0.999); "
+                        "validation and the best snapshots use the average. "
+                        "0 disables.")
+    p.add_argument("--no_prewarm", dest="prewarm", action="store_false", default=d.prewarm,
+                   help="Skip the throwaway step per multi-scale size before the "
+                        "first epoch.")
+    p.add_argument("--compile_cache", type=str, default=d.compile_cache,
+                   help="Accepted for the JAX package's command lines and ignored: "
+                        "the port runs eagerly and has no compilation cache.")
     p.add_argument("--seed", type=int, default=d.seed)
     p.add_argument("--num_workers", type=int, default=d.num_workers,
                    help="Host-side data prefetch threads.")
+    p.add_argument("--host_augment", action="store_true",
+                   help="Augment on the host with PIL (reference behavior) instead "
+                        "of on the card.")
     p.add_argument("--native_io", dest="native_io", action="store_true", default=True,
                    help="Accepted for the JAX package's command lines and "
                         "ignored: the port decodes images with PIL.")
     p.add_argument("--no_native_io", dest="native_io", action="store_false",
                    help="Accepted and ignored, as --native_io.")
+    p.add_argument("--native_io_fast", action="store_true",
+                   help="Accepted and ignored, as --native_io.")
+    p.add_argument("--float_feed", action="store_true",
+                   help="Ship the training batch as float32 [0, 1] instead of raw "
+                        "uint8 (device augment only).")
+    p.add_argument("--backbone", type=str, default=d.backbone,
+                   help="Encoder family: resnet34 only in the port.")
+    p.add_argument("--s2d_stem", action="store_true",
+                   help="Not in the port: raises.")
+    p.add_argument("--flip_prob", type=float, default=d.flip_prob,
+                   help="Train-time h/v flip probability (0 disables).")
+    p.add_argument("--head_conv", type=int, default=d.head_conv,
+                   help="Hidden head width: 0 (the reference's 1x1 head) only "
+                        "in the port.")
+    p.add_argument("--int8", action="store_true", help="Not in the port: raises.")
+    p.add_argument("--debug_nans", action="store_true",
+                   help="Turn on autograd anomaly detection (NaN/inf in backward "
+                        "raise where they arise).")
+    p.add_argument("--resume", dest="resume_dir", type=str, default=None,
+                   help="Resume training from a trainings/<ts> directory written by "
+                        "the port (parameters, optimizer state and step).")
     p.add_argument("--eval_batch_size", type=int, default=d.eval_batch_size,
                    help="Images per device batch in evaluate and detect "
                         "(metrics are identical).")
@@ -325,6 +434,24 @@ def config_from_args(argv=None) -> Config:
         conf_sweep=(tuple(float(t) for t in ns.conf_sweep.split(","))
                     if ns.conf_sweep else None),
         use_amp=not ns.no_amp,
+        profile=ns.profile,
+        stall_timeout_s=max(0.0, ns.stall_timeout_s),
+        malloc_trim=ns.malloc_trim,
+        ema=ns.ema,
+        prewarm=ns.prewarm,
+        compile_cache=ns.compile_cache,
+        device_augment=not ns.host_augment,
+        uint8_feed=not ns.float_feed,
+        flip_prob=min(1.0, max(0.0, ns.flip_prob)),
+        pretrained_backbone=ns.pretrained_backbone,
+        debug_nans=ns.debug_nans,
+        resume_dir=_opt_path(ns.resume_dir),
+        data_parallel=ns.data_parallel,
+        model_parallel=ns.model_parallel,
+        backbone=ns.backbone,
+        s2d_stem=ns.s2d_stem,
+        head_conv=max(0, ns.head_conv),
+        int8=ns.int8,
         seed=ns.seed,
         num_workers=ns.num_workers,
         eval_batch_size=max(1, ns.eval_batch_size),

@@ -1,20 +1,39 @@
-"""Host-side image transforms of the prediction and evaluation paths.
+"""Host-side image and annotation transforms.
 
-The part of `structuredetector_tpu/data/augment.py` that serving,
-`detect` and `evaluate` need: `Compose`, `Resize`, `Normalize`,
-`ValidationAugmentation` (reference `transforms.py:253-267`) and
-`PredictionTransformation` (`transforms.py:270-286`). The training
-transforms wait for the training slice of the port. PIL is imported
-inside the functions that use it, so a caller that feeds decoded arrays
-needs no Pillow.
+The port of `structuredetector_tpu/data/augment.py` (reference
+`transforms.py`):
+
+- `TrainAugmentation`: Resize -> Flatten without augmentation; Resize ->
+  raw uint8 (or float [0, 1]) -> Flatten when the card augments
+  (`ops.device_augment`, the default); Resize -> ColorJitter -> HFlip ->
+  VFlip -> Normalize -> Flatten when the host augments with PIL
+  (`transforms.py:216-235`). `trigger_random_resize` re-rolls the input
+  size each epoch over ratios 0.75 ... 1.25 snapped to multiples of 32
+  (`transforms.py:212`, `:237-244`);
+- `ValidationAugmentation` = Resize -> Normalize -> Flatten
+  (`transforms.py:253-267`);
+- `PredictionTransformation` = Resize -> Normalize only
+  (`transforms.py:270-286`).
+
+Documented divergence, as in the JAX package: the reference draws its
+flip trigger from a normal distribution (`torch.randn(1) < prob`), so
+prob 0.5 flips ~69 % of the time; here the draw is uniform, and
+`legacy_flip=True` reproduces the reference. PIL is imported inside the
+functions that use it, so a caller that feeds decoded arrays needs no
+Pillow.
 """
 
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import numpy as np
 
-from ..annotations import ImageAnnotation, clip_annotation
+from ..annotations import ImageAnnotation, hflip_annotation, vflip_annotation
 from ..ops.device_augment import IMAGENET_MEAN, IMAGENET_STD
+from .pipeline import flatten_annotation
+
+MULTISCALE_RATIOS = (0.75, 0.8125, 0.875, 0.9375, 1, 1.0625, 1.125, 1.1875, 1.25)
 
 
 class Compose:
@@ -50,6 +69,90 @@ class Resize:
         return f"Resize(width: {self.width}, height: {self.height})"
 
 
+class RandomHorizontalFlip:
+    def __init__(self, prob=0.5, rng: Optional[np.random.Generator] = None,
+                 legacy_flip: bool = False):
+        self.prob = prob
+        self.rng = rng or np.random.default_rng()
+        self.legacy_flip = legacy_flip
+
+    def _trigger(self) -> bool:
+        if self.legacy_flip:  # reference transforms.py:14
+            # the reference compares a normal draw with prob (~69 % at
+            # 0.5); prob 0 still never flips and prob 1 always does
+            if self.prob <= 0.0:
+                return False
+            if self.prob >= 1.0:
+                return True
+            return self.rng.standard_normal() < self.prob
+        return self.rng.random() < self.prob
+
+    def __call__(self, image, target: ImageAnnotation):
+        from PIL import Image
+
+        if self._trigger():
+            return image.transpose(Image.FLIP_LEFT_RIGHT), hflip_annotation(target, image.size)
+        return image, target
+
+
+class RandomVerticalFlip(RandomHorizontalFlip):
+    def __call__(self, image, target: ImageAnnotation):
+        from PIL import Image
+
+        if self._trigger():
+            return image.transpose(Image.FLIP_TOP_BOTTOM), vflip_annotation(target, image.size)
+        return image, target
+
+
+class RandomColorJitter:
+    """Brightness/contrast/saturation/hue jitter with torchvision-style
+    factor ranges, applied in a random order (transforms.py:37-47)."""
+
+    def __init__(self, brightness=0.25, contrast=0.25, saturation=0.15, hue=0.05,
+                 rng: Optional[np.random.Generator] = None):
+        self.brightness = brightness
+        self.contrast = contrast
+        self.saturation = saturation
+        self.hue = hue
+        self.rng = rng or np.random.default_rng()
+
+    def __call__(self, image, target: ImageAnnotation):
+        from PIL import ImageEnhance
+
+        rng = self.rng
+        ops = []
+        if self.brightness > 0:
+            f = rng.uniform(max(0.0, 1 - self.brightness), 1 + self.brightness)
+            ops.append(lambda im, f=f: ImageEnhance.Brightness(im).enhance(f))
+        if self.contrast > 0:
+            f = rng.uniform(max(0.0, 1 - self.contrast), 1 + self.contrast)
+            ops.append(lambda im, f=f: ImageEnhance.Contrast(im).enhance(f))
+        if self.saturation > 0:
+            f = rng.uniform(max(0.0, 1 - self.saturation), 1 + self.saturation)
+            ops.append(lambda im, f=f: ImageEnhance.Color(im).enhance(f))
+        if self.hue > 0:
+            shift = rng.uniform(-self.hue, self.hue)
+            ops.append(lambda im, s=shift: _hue_shift(im, s))
+        rng.shuffle(ops)
+        for op in ops:
+            image = op(image)
+        return image, target
+
+
+def _hue_shift(image, shift: float):
+    """Rotate hue by `shift` (a fraction of the hue circle)."""
+    from PIL import Image
+
+    hsv = np.array(image.convert("HSV"), np.uint8)
+    hsv[..., 0] = (hsv[..., 0].astype(np.int16) + int(shift * 255)) % 256
+    return Image.fromarray(hsv, "HSV").convert("RGB")
+
+
+def _hwc(image, dtype) -> np.ndarray:
+    arr = np.asarray(image, dtype)
+    return arr[..., None] if arr.ndim == 2 else arr
+
+
 class Normalize:
     """PIL -> float32 HWC in [0, 1], ImageNet mean/std normalized
     (transforms.py:109-118)."""
@@ -59,35 +162,127 @@ class Normalize:
         self.std = np.asarray(std, np.float32)
 
     def __call__(self, image, target=None):
-        arr = np.asarray(image, np.float32) / 255.0
-        if arr.ndim == 2:
-            arr = arr[..., None]
-        arr = (arr - self.mean) / self.std
-        if target is None:
-            return arr
-        return arr, target
+        arr = (_hwc(image, np.float32) / 255.0 - self.mean) / self.std
+        return arr if target is None else (arr, target)
 
 
-class ToSample:
-    """Terminal transform of the evaluation path: the annotation, already
-    in input-image space, is clipped in place to the image bounds, as the
-    JAX package's `Flatten` clips it before it is compared with
-    predictions; returns the sample dict the `Loader` collates."""
+class Raw01:
+    """PIL -> float32 HWC in [0, 1], not normalized: the float feed of
+    the device augmentation."""
+
+    def __call__(self, image, target=None):
+        arr = _hwc(image, np.float32) / 255.0
+        return arr if target is None else (arr, target)
+
+
+class RawU8:
+    """PIL -> uint8 HWC, the pixels as they are: the default feed of the
+    device augmentation (/255 runs on the card, a quarter of float32's
+    host-to-device bytes)."""
+
+    def __call__(self, image, target=None):
+        arr = _hwc(image, np.uint8)
+        return arr if target is None else (arr, target)
+
+
+class Flatten:
+    """Terminal transform: the annotation, clipped in place to the image,
+    and its padded keypoint arrays -> the sample dict the `Loader`
+    collates."""
+
+    def __init__(self, config):
+        self.config = config
 
     def __call__(self, image: np.ndarray, target: ImageAnnotation) -> dict:
         in_h, in_w = image.shape[:2]
-        clip_annotation(target, (in_w, in_h))
-        return {"image": image, "annotation": target}
+        out_w = int(in_w / self.config.down_ratio)
+        out_h = int(in_h / self.config.down_ratio)
+        kp = flatten_annotation(
+            target,
+            labels=self.config.labels,
+            parts=self.config.parts,
+            max_objects=self.config.max_objects,
+            max_parts=self.config.max_parts,
+            in_size=(in_w, in_h),
+            out_size=(out_w, out_h),
+        )
+        return {"image": image, "keypoints": kp, "annotation": target}
+
+
+class TrainAugmentation:
+    ratios = MULTISCALE_RATIOS  # transforms.py:212
+
+    def __init__(self, config, rng: Optional[np.random.Generator] = None,
+                 legacy_flip: bool = False):
+        self.config = config
+        self.rng = rng or np.random.default_rng(config.seed)
+        self.device_augment = config.device_augment and not config.no_augmentation
+        self.uint8_feed = False  # True only when the card augments
+        if config.no_augmentation:
+            transforms = [Resize((config.width, config.height)), Normalize(), Flatten(config)]
+        elif self.device_augment:
+            # the host only resizes; jitter, flips and normalization run on
+            # the card inside the train step
+            self.uint8_feed = config.uint8_feed
+            transforms = [Resize((config.width, config.height)),
+                          RawU8() if self.uint8_feed else Raw01(), Flatten(config)]
+        else:
+            fp = config.flip_prob
+            transforms = [
+                Resize((config.width, config.height)),
+                RandomColorJitter(rng=self.rng),
+                RandomHorizontalFlip(prob=fp, rng=self.rng, legacy_flip=legacy_flip),
+                RandomVerticalFlip(prob=fp, rng=self.rng, legacy_flip=legacy_flip),
+                Normalize(),
+                Flatten(config),
+            ]
+        self.transform = Compose(transforms)
+
+    @property
+    def current_size(self) -> Tuple[int, int]:
+        r = self.transform.transforms[0]
+        return (r.width, r.height)
+
+    def bucket_sizes(self):
+        """Every (width, height) `trigger_random_resize` can pick, the
+        configured size first."""
+        sizes = [(self.config.width, self.config.height)]
+        if not self.config.no_augmentation:
+            for ratio in self.ratios:
+                size = self._size(ratio)
+                if size not in sizes:
+                    sizes.append(size)
+        return sizes
+
+    def _size(self, ratio):
+        return (max(32, int(ratio * self.config.width / 32) * 32),
+                max(32, int(ratio * self.config.height / 32) * 32))
+
+    def trigger_random_resize(self, next_epoch: Optional[int] = None):
+        """Re-roll the input size for the next epoch (transforms.py:237-
+        244), snapped to multiples of 32. With `next_epoch` the roll is a
+        pure function of (seed, next_epoch), so a resumed run follows the
+        unbroken run's sizes; without it, the stateful draw is used."""
+        if self.config.no_augmentation:
+            return
+        rng = (np.random.default_rng((self.config.seed, 0x5C41E, next_epoch))
+               if next_epoch is not None else self.rng)
+        ratio = self.ratios[int(rng.integers(len(self.ratios)))]
+        self.transform.transforms[0] = Resize(self._size(ratio))
+
+    def __call__(self, image, target):
+        return self.transform(image, target)
 
 
 class ValidationAugmentation:
-    """Resize -> Normalize -> clip (reference `transforms.py:253-267`):
+    """Resize -> Normalize -> Flatten (reference `transforms.py:253-267`):
     a PIL image and its annotation -> {"image": (H, W, 3) float32,
-    "annotation": annotation in input pixels}."""
+    "keypoints": FlatKeypoints, "annotation": the annotation in input
+    pixels, clipped to the image}."""
 
     def __init__(self, config):
         self.transform = Compose(
-            [Resize((config.width, config.height)), Normalize(), ToSample()]
+            [Resize((config.width, config.height)), Normalize(), Flatten(config)]
         )
 
     def __call__(self, image, target):
@@ -112,8 +307,5 @@ class PredictionTransformation:
 
         resized = image.resize((self.resize.width, self.resize.height), Image.BILINEAR)
         if self.device_normalize:
-            arr = np.asarray(resized, np.uint8)
-            if arr.ndim == 2:
-                arr = arr[..., None]
-            return arr
+            return _hwc(resized, np.uint8)
         return self.normalize(resized)

@@ -5,7 +5,9 @@ only; the JAX package's native C++ decode is not part of the port yet):
 
 - `CropDataset` over a directory of `.json` annotation files (sorted),
   images opened with PIL, true `img_size` stamped (reference
-  `dataset.py:13-49`),
+  `dataset.py:13-49`); `localize_image_names()` rewrites the JSONs so
+  `image_path` points next to each (`dataset.py:51-55`), as the trainer
+  asks,
 - `PredictionDataset` over unlabeled `.jpg`/`.jpeg`/`.png` images
   (`dataset.py:168-184`),
 - `LabelStats`/`DatasetStats` summaries (`dataset.py:187-237`).
@@ -38,6 +40,11 @@ class CropDataset:
     def __len__(self):
         return len(self.files)
 
+    def raw_item(self, index):
+        """(image_path, annotation) without decoding the image."""
+        annotation = ImageAnnotation.from_json(self.files[index], self.config.anchor_name)
+        return annotation.image_path, annotation
+
     def __getitem__(self, index):
         annotation = ImageAnnotation.from_json(self.files[index], self.config.anchor_name)
         image = _open_rgb(annotation.image_path)
@@ -45,6 +52,14 @@ class CropDataset:
         if self.transform is not None:
             return self.transform(image, annotation)
         return image, annotation
+
+    def localize_image_names(self):
+        """Rewrite each annotation's image_path to sit next to its JSON
+        (reference dataset.py:51-55; writes into the dataset directory)."""
+        for file in self.files:
+            annotation = ImageAnnotation.from_json(file, self.config.anchor_name)
+            annotation.image_path = file.parent / annotation.image_name
+            annotation.save_json(file.parent)
 
     def stats(self) -> "DatasetStats":
         s = DatasetStats()

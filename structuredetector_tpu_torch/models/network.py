@@ -17,7 +17,8 @@ leading head has no counterpart here.
 Precision: with `dtype=torch.bfloat16` the forward runs under autocast
 (bf16 convolutions, f32 parameters and BN statistics); with float32 it
 runs with TF32 off, so fp32 means fp32. The head output is float32
-either way.
+either way. In train mode the BatchNorm layers follow flax's running
+variance (`resnet.BatchNorm2d`).
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.decode import split_head_output
-from .resnet import STAGE_SIZES, STAGE_WIDTHS, stage, stem
+from .resnet import STAGE_SIZES, STAGE_WIDTHS, BatchNorm2d, stage, stem
 
 
 class FpnBlock(nn.Module):
@@ -42,7 +43,7 @@ class FpnBlock(nn.Module):
         self.lateral = nn.Conv2d(skip_channels, filters, 1)
         self.conv = nn.Sequential(
             nn.Conv2d(filters, filters, 3, padding=1, bias=False),
-            nn.BatchNorm2d(filters),
+            BatchNorm2d(filters),
             nn.ReLU(inplace=True),
         )
 
@@ -61,16 +62,24 @@ class Head(nn.Module):
         return self.conv(x)
 
 
+def no_tf32(dtype: torch.dtype, device: torch.device):
+    """With float32 compute on the card, cuDNN's TF32 off for the
+    convolutions run inside (so fp32 means fp32). The train step also
+    holds it around the backward pass, whose convolutions run after the
+    forward's context has closed."""
+    if dtype == torch.float32 and device.type == "cuda":
+        cudnn = torch.backends.cudnn
+        return cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                           deterministic=cudnn.deterministic, allow_tf32=False)
+    return contextlib.nullcontext()
+
+
 def _precision(dtype: torch.dtype, device: torch.device):
     if dtype == torch.bfloat16:
         return torch.autocast(device.type, dtype=torch.bfloat16)
     if dtype != torch.float32:
         raise ValueError(f"compute dtype must be bfloat16 or float32, not {dtype}")
-    if device.type == "cuda":
-        cudnn = torch.backends.cudnn
-        return cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
-                           deterministic=cudnn.deterministic, allow_tf32=False)
-    return contextlib.nullcontext()
+    return no_tf32(dtype, device)
 
 
 class SDNet(nn.Module):

@@ -21,6 +21,7 @@ so the port writes checkpoints the JAX package loads (`save_msgpack`).
 
 from __future__ import annotations
 
+import os
 from collections import OrderedDict
 from pathlib import Path
 from typing import Any, Dict, Mapping
@@ -196,10 +197,60 @@ def load_weights(model: torch.nn.Module, path) -> torch.nn.Module:
     return model
 
 
-def save_msgpack(model: torch.nn.Module, path) -> Path:
-    """Write `model`'s weights as the JAX package's `save_params` would:
-    a `.msgpack` that JAX `load_params` and the port's `load_weights`
-    read."""
+def save_msgpack(weights, path) -> Path:
+    """Write a model's weights (the module or its state_dict) as the JAX
+    package's `save_params` would: a `.msgpack` that JAX `load_params`
+    and the port's `load_weights` read. The file is replaced atomically,
+    so a reader never sees half of it."""
     path = Path(path)
-    path.write_bytes(msgpack.dumps(jax_tree_from_state_dict(model.state_dict())))
+    sd = weights.state_dict() if isinstance(weights, torch.nn.Module) else weights
+    tmp = path.with_name(path.name + ".tmp")
+    tmp.write_bytes(msgpack.dumps(jax_tree_from_state_dict(sd)))
+    os.replace(tmp, path)
     return path
+
+
+def find_imagenet_resnet34() -> Path:
+    """A torchvision ImageNet resnet34 checkpoint already on disk (the
+    reference's `pretrained=True`, network.py:41; nothing is downloaded):
+    `$SDNET_PRETRAINED` if set, else the first `resnet34-*.pth` under
+    `$TORCH_HOME/hub/checkpoints` (default `~/.cache/torch`). Raises
+    FileNotFoundError naming the place it looked."""
+    explicit = os.environ.get("SDNET_PRETRAINED")
+    if explicit:
+        p = Path(explicit)
+        if p.is_file():
+            return p
+        raise FileNotFoundError(f"$SDNET_PRETRAINED points at '{p}', which does not exist")
+    torch_home = Path(os.environ.get("TORCH_HOME", Path.home() / ".cache" / "torch"))
+    where = torch_home / "hub" / "checkpoints"
+    hits = sorted(where.glob("resnet34-*.pth"))
+    if hits:
+        return hits[0]
+    raise FileNotFoundError(
+        f"--pretrained: no ImageNet resnet34 checkpoint (resnet34-*.pth) in {where}; "
+        "place torchvision's resnet34 weights there, or set $SDNET_PRETRAINED "
+        "(or $TORCH_HOME), or pass a model with --load_model")
+
+
+def load_imagenet_encoder(model: torch.nn.Module, path) -> torch.nn.Module:
+    """Load a torchvision resnet34 state_dict into the SDNet's encoder
+    (`conv1`/`bn1` -> `adpater.{0,1}`, `layer{i}` -> `down{i}`; `fc` is
+    dropped). Every encoder tensor must be there; the FPN and the head
+    keep their values."""
+    src = torch.load(path, map_location="cpu", weights_only=True)
+    sd = {}
+    for key, value in src.items():
+        head, _, rest = key.partition(".")
+        if head == "conv1":
+            sd[f"adpater.0.{rest}"] = value
+        elif head == "bn1":
+            sd[f"adpater.1.{rest}"] = value
+        elif head.startswith("layer"):
+            sd[f"down{head[5:]}.{rest}"] = value
+    encoder = {k for k in model.state_dict() if k.startswith(("adpater.", "down"))}
+    missing = sorted(encoder - set(sd))
+    if missing:
+        raise ValueError(f"{path} is not a torchvision resnet34: missing {missing[:4]}")
+    model.load_state_dict(sd, strict=False)
+    return model

@@ -71,3 +71,36 @@ def gather_features(feat: torch.Tensor, inds: torch.Tensor) -> torch.Tensor:
     flat = feat.reshape(b, c, -1)
     idx = inds.long()[:, None, :].expand(b, c, inds.shape[1])
     return flat.gather(2, idx).transpose(1, 2)
+
+
+def gaussian_heatmap_max(
+    heat: torch.Tensor,
+    centers_x: torch.Tensor,
+    centers_y: torch.Tensor,
+    classes: torch.Tensor,
+    mask: torch.Tensor,
+    sigma: float,
+    n_channels: int,
+) -> torch.Tensor:
+    """Unnormalized Gaussians max-merged per class channel
+    (`structuredetector_tpu/ops/tensor.py:145-181`, NCHW).
+
+    heat: (B, C, H, W) initial heatmaps (usually zeros); centers_*: (B, K)
+    integer-valued grid coordinates (the reference splats at `int(x),
+    int(y)`); classes: (B, K) channel index; mask: (B, K) validity.
+    Returns `heat` max-merged with each valid keypoint's Gaussian."""
+    b, c, h, w = heat.shape
+    if c != n_channels:
+        raise ValueError(f"heat has {c} channels, expected {n_channels}")
+    ys = torch.arange(h, dtype=torch.float32, device=heat.device).view(1, 1, h, 1)
+    xs = torch.arange(w, dtype=torch.float32, device=heat.device).view(1, 1, 1, w)
+    dx2 = (xs - centers_x[:, :, None, None].float()) ** 2
+    dy2 = (ys - centers_y[:, :, None, None].float()) ** 2
+    gauss = torch.exp(-(dx2 + dy2) / (2.0 * sigma**2))  # (B, K, H, W)
+    gauss = gauss * mask[:, :, None, None]
+    channels = [
+        (gauss * (classes == ch)[:, :, None, None]).amax(dim=1) if gauss.shape[1]
+        else gauss.new_zeros((b, h, w))
+        for ch in range(n_channels)
+    ]
+    return torch.maximum(heat, torch.stack(channels, dim=1).to(heat.dtype))
