@@ -41,9 +41,27 @@ of JAX or of the JAX package. Phases, one JSON line each:
    (kernel A); anchor F1 must be at least 0.99 for every label, the
    sweep's first summary must equal a run without the sweep, and both
    kernels' launch counters must rise. Reports images/s of both;
-7. reference: a small fp32 model on the card agrees with the same model
+7. export (the deployment path, on evaluate_detect's checkpoint and
+   PNGs): `cli.convert_export` writes a static batch-32 artifact and a
+   `--uint8_input --dynamic_batch` one on the card; `ExportPredictor` on
+   32 images gives `Predictor`'s annotations for each (heads within the
+   bf16 bar); `cli.serve --artifact` in a process of its own answers
+   concurrent PNG POSTs; `cli.evaluate_export` scores the 64 PNGs
+   (anchor F1 at least 0.99 on the model's own predictions);
+   ExportPredictor's img/s beside Predictor's at batch 32, in turns;
+8. int8 (the JAX package's benchmark configuration: int8 convs, static
+   scales calibrated on 16 images, prequantized weights): `_int_mm`'s
+   rules on this card; the im2col product exact against the CPU on every
+   int8 conv shape of the model and on maps of 16 rows or fewer; the int8
+   forward at batch 32 and 128 beside bf16 (CUDA events, in turns), peak
+   memory, predict_batch img/s; the int8 head's gap from bf16 (the JAX
+   test's bar 0.25) and anchor-peak agreement; kernel B counted on the
+   int8 Predictor path and kernel A on `cli.evaluate --int8`; a
+   `convert_export --int8 --calibrate_dir` artifact through
+   `evaluate_export`; a small fp32 int8 model on the card against the CPU;
+9. reference: a small fp32 model on the card agrees with the same model
    on the CPU;
-8. train (main path of kernel A): the train step at full width (bf16,
+10. train (main path of kernel A): the train step at full width (bf16,
    device augmentation, uint8 feed, every keypoint slot filled) timed at
    batch 8 and 32 with CUDA events (ms, img/s, peak memory, finite loss,
    its FLOPs' share of the dense bf16 peak); 30 steps on one batch must
@@ -742,9 +760,11 @@ def _cwd(path: Path):
         os.chdir(old)
 
 
-def phase_evaluate_detect(card: str, load_model) -> dict:
-    """The evaluate/detect main path at full width; returns the launch
-    counts of its run."""
+def phase_evaluate_detect(card: str, load_model, tmp: Path):
+    """The evaluate/detect main path at full width, in the working
+    directory `tmp`, where it leaves its PNGs (`images/`), the checkpoint
+    and detect's predictions for the export and int8 phases. Returns the
+    launch counts of its run, the checkpoint and the predictions' directory."""
     import numpy as np
     import torch
 
@@ -756,53 +776,51 @@ def phase_evaluate_detect(card: str, load_model) -> dict:
 
     n_images, batch, conf = 64, 32, 0.1
     sweep = (0.1, 0.3, 0.5)
-    with tempfile.TemporaryDirectory(prefix="sdnet-smoke-") as tmp:
-        tmp = Path(tmp)
-        images = tmp / "images"
-        images.mkdir()
-        _write_pngs(images, n_images, seed=926354916)
-        cfg = Config(labels_path=ROOT / "labels.json", pretrained_model=load_model).finalize()
-        # the seeded model, written by the port as the JAX package's
-        # save_params would, then loaded back by the CLIs
-        warm = Predictor(cfg, device="cuda")
-        if load_model is None:
-            _sub_cell_offsets(warm.model, cfg)
-        ckpt = save_msgpack(warm.model, tmp / "model_best_csi.msgpack")
-        # cuDNN picks its algorithms per shape once a process: warm both
-        # feeds at batch 32 so the timed runs below measure steady state
-        feed = np.zeros((cfg.height, cfg.width, 3), np.uint8)
-        warm.predict_batch([PreparedImage(feed, (cfg.width, cfg.height))] * batch)
-        with torch.inference_mode():
-            warm.model(torch.zeros((batch, 3, cfg.height, cfg.width), device=warm.device))
-        torch.cuda.synchronize()
-        del warm
+    images = tmp / "images"
+    images.mkdir()
+    _write_pngs(images, n_images, seed=926354916)
+    cfg = Config(labels_path=ROOT / "labels.json", pretrained_model=load_model).finalize()
+    # the seeded model, written by the port as the JAX package's
+    # save_params would, then loaded back by the CLIs
+    warm = Predictor(cfg, device="cuda")
+    if load_model is None:
+        _sub_cell_offsets(warm.model, cfg)
+    ckpt = save_msgpack(warm.model, tmp / "model_best_csi.msgpack")
+    # cuDNN picks its algorithms per shape once a process: warm both
+    # feeds at batch 32 so the timed runs below measure steady state
+    feed = np.zeros((cfg.height, cfg.width, 3), np.uint8)
+    warm.predict_batch([PreparedImage(feed, (cfg.width, cfg.height))] * batch)
+    with torch.inference_mode():
+        warm.model(torch.zeros((batch, 3, cfg.height, cfg.width), device=warm.device))
+    torch.cuda.synchronize()
+    del warm
 
-        common = ["--labels", str(ROOT / "labels.json"), "--load_model", str(ckpt),
-                  "--eval_batch_size", str(batch), "--num_workers", "4"]
-        # --- the main path: counts set to 0 just before, read just after
-        reset_launch_counts()
-        with _cwd(tmp):
-            t0 = time.perf_counter()
-            out_dir = detect.main(["--valid_dir", str(images), "--conf_threshold", str(conf),
-                                   *common])
-            torch.cuda.synchronize()
-            detect_s = time.perf_counter() - t0
-        predictions = sorted((tmp / out_dir).glob("*.json"))
+    common = ["--labels", str(ROOT / "labels.json"), "--load_model", str(ckpt),
+              "--eval_batch_size", str(batch), "--num_workers", "4"]
+    # --- the main path: counts set to 0 just before, read just after
+    reset_launch_counts()
+    with _cwd(tmp):
         t0 = time.perf_counter()
-        swept = evaluate.main(["--valid_dir", str(tmp / out_dir), "--conf_sweep",
-                               ",".join(map(str, sweep)), "--save_summary",
-                               str(tmp / "sweep.json"), *common])
+        out_dir = detect.main(["--valid_dir", str(images), "--conf_threshold", str(conf),
+                               *common])
         torch.cuda.synchronize()
-        sweep_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        single_ev = evaluate.main(["--valid_dir", str(tmp / out_dir), "--conf_threshold",
-                                   str(conf), "--save_summary", str(tmp / "one.json"), *common])
-        torch.cuda.synchronize()
-        evaluate_s = time.perf_counter() - t0
-        launches = launch_counts()
-        # --- end of the main path
-        summaries = json.loads((tmp / "sweep.json").read_text())
-        single = json.loads((tmp / "one.json").read_text())
+        detect_s = time.perf_counter() - t0
+    predictions = sorted((tmp / out_dir).glob("*.json"))
+    t0 = time.perf_counter()
+    swept = evaluate.main(["--valid_dir", str(tmp / out_dir), "--conf_sweep",
+                           ",".join(map(str, sweep)), "--save_summary",
+                           str(tmp / "sweep.json"), *common])
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    single_ev = evaluate.main(["--valid_dir", str(tmp / out_dir), "--conf_threshold",
+                               str(conf), "--save_summary", str(tmp / "one.json"), *common])
+    torch.cuda.synchronize()
+    evaluate_s = time.perf_counter() - t0
+    launches = launch_counts()
+    # --- end of the main path
+    summaries = json.loads((tmp / "sweep.json").read_text())
+    single = json.loads((tmp / "one.json").read_text())
 
     if len(predictions) != n_images:
         raise AssertionError(f"detect wrote {len(predictions)} predictions for {n_images} images")
@@ -844,6 +862,469 @@ def phase_evaluate_detect(card: str, load_model) -> dict:
     if sweep_vs_single > 1e-6:
         raise AssertionError(
             f"the sweep's first summary departs from a single run by {sweep_vs_single}")
+    return launches, ckpt, tmp / out_dir
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _serve_artifact(artifact: Path, bodies, cwd: Path) -> dict:
+    """`python -m structuredetector_tpu_torch.cli.serve --artifact` in a
+    process of its own, with `--pipeline` (it measures the card through
+    the artifact to decide on the depth-2 pipeline, then warms every batch
+    shape up to 32 through it); 4 clients POST `bodies`; the process is
+    stopped after. Returns the answers, the server's /healthz and the
+    seconds to ready."""
+    import signal
+    import subprocess
+
+    port = _free_port()
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    log = open(cwd / "serve_artifact.log", "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "structuredetector_tpu_torch.cli.serve", "--artifact",
+         str(artifact), "--port", str(port), "--batch_window_ms", "20", "--max_batch", "32",
+         "--pipeline"],
+        cwd=cwd, env=env, stdout=log, stderr=subprocess.STDOUT)
+    url = f"http://127.0.0.1:{port}"
+    try:
+        t0 = time.perf_counter()
+        while True:
+            if proc.poll() is not None:
+                raise AssertionError(f"serve --artifact exited with {proc.returncode}: "
+                                     + (cwd / "serve_artifact.log").read_text()[-2000:])
+            try:
+                with urllib.request.urlopen(url + "/healthz", timeout=5):
+                    break
+            except OSError:
+                if time.perf_counter() - t0 > 300:
+                    raise AssertionError("serve --artifact did not come up in 300 s")
+                time.sleep(0.5)
+        ready_s = time.perf_counter() - t0
+        answers = [None] * len(bodies)
+
+        def client(c: int):
+            for i in range(c, len(bodies), 4):
+                answers[i] = _post(url + "/detect", bodies[i])
+
+        clients = [threading.Thread(target=client, args=(c,)) for c in range(4)]
+        for t in clients:
+            t.start()
+        for t in clients:
+            t.join(timeout=300)
+        with urllib.request.urlopen(url + "/healthz", timeout=30) as resp:
+            health = json.loads(resp.read())
+    finally:
+        proc.send_signal(signal.SIGINT)
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+        log.close()
+    if None in answers:
+        raise AssertionError("serve --artifact left a request unanswered")
+    said = [ln for ln in (cwd / "serve_artifact.log").read_text().splitlines()
+            if ln.startswith(("measured", "pipeline", "serving"))]
+    return {"answers": answers, "health": health, "ready_s": ready_s, "log": said}
+
+
+def _img_per_s(predict, feed, rounds: int = 10) -> float:
+    """Host-clock images a second of `predict(feed)`, warm."""
+    import torch
+
+    predict(feed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(rounds):
+        predict(feed)
+    torch.cuda.synchronize()
+    return rounds * len(feed) / (time.perf_counter() - t0)
+
+
+def _in_turns(fns: dict, measure) -> dict:
+    """`measure(fn)` of two functions in turns a, b, b, a: their means and
+    runs."""
+    (a, fa), (b, fb) = fns.items()
+    runs = {a: [], b: []}
+    for name, fn in ((a, fa), (b, fb), (b, fb), (a, fa)):
+        runs[name].append(measure(fn))
+    return {name: {"mean": sum(v) / 2, "runs": v} for name, v in runs.items()}
+
+
+def phase_export(card: str, tmp: Path, ckpt: Path, gt_dir: Path) -> dict:
+    """The deployment path at full width (resnet34, fpn_depth 128, 512x512,
+    bf16, labels.json), on the checkpoint and predictions that
+    evaluate_detect left in `tmp`: `cli.convert_export` writes a static
+    batch-32 artifact and a `--uint8_input --dynamic_batch` one on the card;
+    `ExportPredictor.predict_batch` on 32 images gives `Predictor`'s
+    annotations for each (its heads within the bf16 bar of the serve
+    phase); `cli.serve --artifact` answers concurrent PNG POSTs;
+    `cli.evaluate_export` scores the 64 PNGs against detect's predictions;
+    ExportPredictor's img/s beside Predictor's at batch 32 (host clock,
+    in turns). Returns the launch counts of the run: none, since the
+    program holds no kernel and its decode is the plain top-k."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from structuredetector_tpu_torch.cli import convert_export, evaluate_export
+    from structuredetector_tpu_torch.config import Config
+    from structuredetector_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from structuredetector_tpu_torch.ops.tensor import clamped_sigmoid, plateau_nms
+    from structuredetector_tpu_torch.predictor import ExportPredictor, Predictor, PreparedImage
+
+    labels = ROOT / "labels.json"
+    cfg = Config(labels_path=labels, pretrained_model=ckpt).finalize()
+    nb = cfg.n_labels + cfg.n_parts
+    images = [Image.open(p).convert("RGB") for p in sorted((tmp / "images").glob("*.png"))[:32]]
+    rng = np.random.default_rng(926354916)
+    bodies = [_png(rng, *im.size) for im in images[:16]]
+
+    # the live model's annotations and suppressed heads on the two feeds
+    # the artifacts take: host-normalized float32 and uint8
+    live = {"static32": Predictor(cfg, device="cuda", device_normalize=False),
+            "uint8_dynamic": Predictor(cfg, device="cuda", device_normalize=True)}
+    arrays, want, ref = {}, {}, {}
+    for name, pred in live.items():
+        want[name] = [a.json_repr() for a in pred.predict_batch(images)]
+        arrays[name] = [pred.transform(im) for im in images]
+        with torch.inference_mode():
+            head = pred.forward(pred.to_device(arrays[name]))
+            ref[name] = torch.cat((plateau_nms(clamped_sigmoid(head[:, :nb])), head[:, nb:]), 1)
+    torch.cuda.synchronize()
+
+    # --- the main path: counts set to 0 just before, read just after
+    reset_launch_counts()
+    artifacts, convert_s = {}, {}
+    for name, flags in (("static32", ["--batch_size", "32"]),
+                        ("uint8_dynamic", ["--uint8_input", "--dynamic_batch"])):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            artifacts[name] = convert_export.main([str(ckpt), "-o", str(tmp / f"{name}.sdz"),
+                                                   "--params", str(labels), *flags])
+        convert_s[name] = time.perf_counter() - t0
+    exported = {name: ExportPredictor(path) for name, path in artifacts.items()}
+    agreement = {}
+    for name, ep in exported.items():
+        got = [a.json_repr() for a in ep.predict_batch(images)]
+        head = ep.forward(ep.to_device(arrays[name]))
+        agreement[name] = {
+            "annotations_equal": got == want[name],
+            "objects": sum(len(a["objects"]) for a in want[name]),
+            "head_bit_identical": bool(torch.equal(head, ref[name])),
+            "head_max_rel": float((head - ref[name]).abs().max() / ref[name].abs().max()),
+        }
+        if not agreement[name]["annotations_equal"]:
+            raise AssertionError(f"ExportPredictor ({name}) and Predictor disagree: "
+                                 f"{agreement[name]}")
+        # the bf16 bar of the serve phase
+        if agreement[name]["head_max_rel"] > 0.08:
+            raise AssertionError(f"the {name} artifact's head departs from the live "
+                                 f"model's: {agreement[name]}")
+    served = _serve_artifact(artifacts["uint8_dynamic"], bodies, tmp)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):  # its metric tables
+        evaluator = evaluate_export.main([str(artifacts["static32"]), "--valid_dir", str(gt_dir),
+                                          "--conf_threshold", "0.1", "--num_workers", "4",
+                                          "--save_summary", str(tmp / "export.json")])
+    torch.cuda.synchronize()
+    evaluate_export_s = time.perf_counter() - t0
+    launches = launch_counts()
+    # --- end of the main path
+    if any(launches.values()):
+        raise AssertionError(f"the export path holds no kernel, yet launched {launches}")
+
+    for body, ans in zip(bodies, served["answers"]):
+        with Image.open(io.BytesIO(body)) as im:
+            if ans["img_size"] != list(im.size):
+                raise AssertionError(f"serve --artifact answered {ans['img_size']} for {im.size}")
+        for obj in ans["objects"]:
+            if obj["label"] not in cfg.labels:
+                raise AssertionError(f"malformed object in an answer: {obj}")
+    if served["health"]["images_run"] != len(bodies):
+        raise AssertionError(f"serve --artifact: {served['health']}")
+    f1 = {label: e.f1_score for label, e in evaluator.anchor_eval.items() if e.npos or e.ndet}
+    low = {label: v for label, v in f1.items() if v < 0.99}
+    if low or not f1:
+        raise AssertionError(f"evaluate_export: anchor F1 on the model's own predictions "
+                             f"below 0.99: {f1}")
+
+    # throughput at batch 32 in turns, each pair on one feed: the live
+    # predictor against the artifact that takes the same feed
+    rates = {}
+    for name, ep in exported.items():
+        pred = live[name]
+        feed = [PreparedImage(a, im.size) for a, im in zip(arrays[name], images)]
+        rates[name] = _in_turns({"Predictor": pred.predict_batch,
+                                 "ExportPredictor": ep.predict_batch},
+                                lambda fn, feed=feed: _img_per_s(fn, feed))
+    emit({"phase": "export", "card": card,
+          "model": f"SDNet resnet34 fpn_depth={cfg.fpn_depth} {cfg.width}x{cfg.height} bf16, "
+                   "the evaluate_detect checkpoint",
+          "convert_export_s": convert_s,
+          "artifact_bytes": {k: v.stat().st_size for k, v in artifacts.items()},
+          "agreement_batch32": agreement,
+          "serve_artifact": {"requests": len(bodies), "clients": 4,
+                             "ready_s": served["ready_s"],
+                             "batches_run": served["health"]["batches_run"],
+                             "latency": served["health"]["latency"],
+                             "model": served["health"]["model"], "log": served["log"]},
+          "evaluate_export": {"images": 64, "batch": 32, "wall_s": evaluate_export_s,
+                              "anchor_f1_own_predictions": f1},
+          "img_per_s_batch32": rates,
+          "timing": "host clock, predict_batch on 32 PreparedImages (copy, forward, decode, "
+                    "fetch, annotations), 10 rounds, in turns Predictor, ExportPredictor, "
+                    "ExportPredictor, Predictor",
+          "launches": launches})
+    return launches
+
+
+def _int_mm_rules() -> dict:
+    """Which operands `torch._int_mm` takes on this card and build: each
+    case against the exact product (float64 on the CPU): 'equal', 'WRONG'
+    or the error it raises. The port's wrapper passes only contiguous
+    (M, K) and (K, N) operands with M > 16 and K, N multiples of 8."""
+    import torch
+
+    g = torch.Generator().manual_seed(0)
+
+    def r8(*shape):
+        return torch.randint(-127, 128, shape, dtype=torch.int8, generator=g)
+
+    cases = {f"rows {m}, K {k}, N {n}": (r8(m, k), r8(k, n))
+             for m in (4, 16, 17, 20, 24, 32, 40, 48, 64, 256) for k, n in ((64, 32), (1152, 128))}
+    cases.update({"K 12": (r8(32, 12), r8(12, 32)), "N 12": (r8(32, 64), r8(64, 12)),
+                  "b column-major": (r8(32, 64), r8(32, 64).t()),
+                  "a column-major": (r8(64, 32).t(), r8(64, 32))})
+    out = {}
+    for name, (a, b) in cases.items():
+        want = (a.double() @ b.double()).to(torch.int32)
+        try:
+            got = torch._int_mm(a.cuda(), b.cuda())
+            torch.cuda.synchronize()
+            out[name] = "equal" if torch.equal(got.cpu(), want) else "WRONG"
+        except RuntimeError as e:
+            out[name] = "error: " + str(e).splitlines()[0][:160]
+    return out
+
+
+def _head_gap(got, want) -> float:
+    """rmse over the reference's spread (JAX tests/test_int8.py's measure)."""
+    return float((got - want).double().pow(2).mean().sqrt() / (want.double().std() + 1e-8))
+
+
+def phase_int8(card: str, tmp: Path, ckpt: Path, gt_dir: Path) -> dict:
+    """The JAX package's benchmark configuration, int8 with calibrated
+    static scales, in the port at full width, on the evaluate_detect
+    checkpoint: `_int_mm`'s rules, and the port's im2col product exact
+    against the CPU on every int8 conv shape of the model and on maps of
+    16 rows or fewer; static scales calibrated on 16 images and the
+    weights prequantized; the int8 forward at batch 32 and 128 beside
+    the bf16 forward (CUDA events, in turns), peak memory, `predict_batch`
+    img/s; the int8 head's gap from the bf16 head and anchor-peak
+    agreement; kernel B counted on the int8 Predictor path and kernel A
+    on `cli.evaluate --int8`; a `convert_export --int8 --calibrate_dir`
+    artifact through `evaluate_export`; a small fp32 int8 model on the
+    card against the CPU. Returns the launch counts of the main path."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from structuredetector_tpu_torch.cli import convert_export, evaluate, evaluate_export
+    from structuredetector_tpu_torch.config import Config
+    from structuredetector_tpu_torch.data.augment import PredictionTransformation
+    from structuredetector_tpu_torch.models.network import init_model
+    from structuredetector_tpu_torch.models.quantize import (
+        calibrate_activation_scales,
+        int8_conv_nhwc,
+        int8_conv_reference,
+        int8_convs,
+        prequantize_variables,
+    )
+    from structuredetector_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from structuredetector_tpu_torch.predictor import Predictor, PreparedImage
+
+    labels = ROOT / "labels.json"
+    cfg = Config(labels_path=labels, pretrained_model=ckpt).finalize()
+    cfg8 = dataclasses.replace(cfg, int8=True)
+    bf16, int8 = Predictor(cfg, device="cuda"), Predictor(cfg8, device="cuda")
+    if len(int8_convs(int8.model)) != 42:
+        raise AssertionError("the int8 model must have 42 int8 convs")
+    images = [Image.open(p).convert("RGB") for p in sorted((tmp / "images").glob("*.png"))]
+
+    # the im2col product on every int8 conv shape the model runs (one
+    # image), exact against the CPU's float64 convolution of the same int8
+    # values, and on maps of 16 rows or fewer, which take the padded path
+    captured = {}
+
+    def capture(module, args):
+        x_q, _ = module.quantize_input(args[0])
+        w_q, _ = module.int8_weight()
+        key = (tuple(x_q.shape), tuple(w_q.shape), module.stride, module.padding)
+        captured.setdefault(key, (x_q.permute(0, 2, 3, 1).contiguous(), w_q))
+
+    hooks = [m.register_forward_pre_hook(capture) for m in int8_convs(int8.model)]
+    feed1 = int8.to_device([int8.transform(images[0])])
+    int8.forward(feed1)
+    for h in hooks:
+        h.remove()
+    g = torch.Generator().manual_seed(1)
+    small = {(4, 512, 3): (1, 2, 2, 512), (16, 256, 1): (1, 4, 4, 256), (8, 128, 3): (2, 2, 2, 128),
+             (15, 64, 3): (1, 3, 5, 64)}
+    for (rows, cin, k), shape in small.items():
+        x_q = torch.randint(-127, 128, shape, dtype=torch.int8, generator=g).cuda()
+        w_q = torch.randint(-127, 128, (cin, cin, k, k), dtype=torch.int8, generator=g).cuda()
+        captured[("rows<=16",) + shape] = (x_q, w_q)
+    shapes = []
+    for key, (x_q, w_q) in captured.items():
+        stride, padding = (key[2], key[3]) if key[0] != "rows<=16" else ((1, 1), (w_q.shape[2] // 2,) * 2)
+        got = int8_conv_nhwc(x_q, w_q, stride, padding).cpu()
+        want = int8_conv_reference(x_q.cpu(), w_q.cpu(), stride, padding)
+        if not torch.equal(got, want):
+            raise AssertionError(f"the int8 product differs from the CPU's at {key}")
+        shapes.append([list(x_q.shape), list(w_q.shape), list(stride), list(padding),
+                       int(x_q.shape[0] * got.shape[1] * got.shape[2])])
+
+    # batch-32 feeds; calibration on 16 images, normalized on the host as
+    # convert_export --calibrate_dir does
+    u8 = [int8.transform(im) for im in images[:32]]
+    feed32 = int8.to_device(u8)
+    feed128 = int8.to_device(u8 * 4)
+    with torch.inference_mode():
+        dynamic_ms = time_ms(lambda: int8.forward(feed32), iters=10, warmup=2)
+    host = PredictionTransformation(cfg8, device_normalize=False)
+    cal = torch.from_numpy(np.stack([host(im) for im in images[:16]])).cuda()
+    calibrate_activation_scales(int8.model, [cal.permute(0, 3, 1, 2).contiguous()])
+    prequantize_variables(int8.model)
+    if any(m.act_scale is None or m.weight.dtype != torch.int8
+           for m in int8_convs(int8.model)):
+        raise AssertionError("calibration or prequantization left a conv out")
+
+    with torch.inference_mode():
+        fwd = {b: _in_turns({"bf16": lambda f=f: bf16.forward(f), "int8": lambda f=f: int8.forward(f)},
+                            lambda fn: time_ms(fn, iters=10, warmup=2))
+               for b, f in ((32, feed32), (128, feed128))}
+        peak = {}
+        for name, pred in (("bf16", bf16), ("int8", int8)):
+            for b, f in ((32, feed32), (128, feed128)):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                pred.forward(f)
+                torch.cuda.synchronize()
+                peak[f"{name} batch {b}"] = {"max_allocated": torch.cuda.max_memory_allocated(),
+                                             "above_resident": torch.cuda.max_memory_allocated() - base}
+        h16, h8 = bf16.forward(feed32), int8.forward(feed32)
+        # where the int8 forward's device time goes: a profiler trace
+        trace = _device_busy(lambda: int8.forward(feed32), fwd[32]["int8"]["mean"], top=12)
+    gaps = {name: _head_gap(h8[:, ch], h16[:, ch]) for name, ch in (
+        ("anchor_hm", slice(0, cfg.n_labels)), ("part_hm", slice(cfg.n_labels, cfg.n_labels + cfg.n_parts)),
+        ("offsets", slice(-4, -2)), ("embeddings", slice(-2, None)))}
+    a8, a16 = h8[:, : cfg.n_labels].flatten(2).argmax(-1), h16[:, : cfg.n_labels].flatten(2).argmax(-1)
+    peak_agreement = float((a8 == a16).float().mean())
+    prepared = [PreparedImage(a, im.size) for a, im in zip(u8, images)]
+    rates = _in_turns({"bf16": bf16.predict_batch, "int8": int8.predict_batch},
+                      lambda fn: _img_per_s(fn, prepared))
+
+    common = ["--labels", str(labels), "--load_model", str(ckpt), "--eval_batch_size", "32",
+              "--num_workers", "4", "--conf_threshold", "0.1"]
+    # --- the main path: counts set to 0 just before, read just after
+    reset_launch_counts()
+    anns = int8.predict_batch(images[:32])
+    after_predict = launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        ev8 = evaluate.main(["--valid_dir", str(gt_dir), "--int8", "--save_summary",
+                             str(tmp / "int8.json"), *common])[0.1]
+        torch.cuda.synchronize()
+        evaluate_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        artifact = convert_export.main([str(ckpt), "-o", str(tmp / "int8_static.sdz"), "--params",
+                                        str(labels), "--int8", "--calibrate_dir",
+                                        str(tmp / "images"), "--calibrate_images", "16",
+                                        "--batch_size", "32"])
+        convert_s = time.perf_counter() - t0
+        ev_export = evaluate_export.main([str(artifact), "--valid_dir", str(gt_dir),
+                                          "--conf_threshold", "0.1", "--num_workers", "4"])
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    # --- end of the main path
+    if not after_predict["sigmoid_nms_topk"]:
+        raise AssertionError(f"the int8 Predictor did not launch kernel B: {after_predict}")
+    if not launches["sigmoid_nms"] - after_predict["sigmoid_nms"]:
+        raise AssertionError(f"evaluate --int8 did not launch kernel A: {launches}")
+    if len(anns) != 32:
+        raise AssertionError("the int8 predict_batch lost images")
+    f1 = {"evaluate --int8": {k: e.f1_score for k, e in ev8.anchor_eval.items() if e.npos or e.ndet},
+          "evaluate_export int8 static": {k: e.f1_score for k, e in ev_export.anchor_eval.items()
+                                          if e.npos or e.ndet}}
+    for name, v in f1.items():
+        if not v or not all(math.isfinite(x) for x in v.values()):
+            raise AssertionError(f"{name}: anchor F1 {v}")
+
+    # a small fp32 int8 model on the card against the same model on the
+    # CPU, same weights and images: every int8 conv, fed the input it got
+    # on the card, gives the card's output on the CPU bit for bit (the
+    # quantization, the exact product and the dequantization are the same
+    # IEEE operations on both); the whole model's gap is recorded
+    small_cfg = Config(width=128, height=128, fpn_depth=32, use_amp=False, int8=True,
+                       labels_path=labels).finalize()
+    gpu, cpu = init_model(small_cfg).cuda(), init_model(small_cfg)
+    fp32 = init_model(dataclasses.replace(small_cfg, int8=False))
+    x = torch.from_numpy(np.random.default_rng(7).normal(0, 1, (4, 3, 128, 128)).astype(np.float32))
+    seen = []
+    hooks = [m.register_forward_hook(lambda m, args, out: seen.append((m, args[0], out)))
+             for m in int8_convs(gpu)]
+    with torch.inference_mode():
+        h_gpu = gpu(x.cuda(), raw_output=True).cpu()
+        for h in hooks:
+            h.remove()
+        cpu_convs = dict(zip(int8_convs(gpu), int8_convs(cpu)))
+        layers_equal = sum(torch.equal(cpu_convs[m](inp.cpu()), out.cpu()) for m, inp, out in seen)
+        h_cpu, h_fp32 = cpu(x, raw_output=True), fp32(x, raw_output=True)
+    card_vs_cpu = {"int8_layers_bit_identical": f"{layers_equal} of {len(seen)}",
+                   "gap": _head_gap(h_gpu, h_cpu), "int8_vs_fp32_gap": _head_gap(h_cpu, h_fp32),
+                   "bit_identical": bool(torch.equal(h_gpu, h_cpu)),
+                   "max_rel": float((h_gpu - h_cpu).abs().max() / h_cpu.abs().max())}
+
+    emit({"phase": "int8", "card": card,
+          "model": f"SDNet resnet34 fpn_depth={cfg.fpn_depth} {cfg.width}x{cfg.height}, int8 convs "
+                   "(42: blocks, downsamples, FPN; stem and head bf16), static scales "
+                   "calibrated on 16 images, prequantized weights; the evaluate_detect checkpoint",
+          "int_mm_rules": _int_mm_rules(), "int8_product_exact_shapes": shapes,
+          "forward_ms": fwd, "int8_dynamic_forward_ms_batch32": dynamic_ms,
+          "int8_forward_trace_batch32": trace,
+          "peak_memory_bytes": peak,
+          "timing": "CUDA events, mean of 10 forwards after 2 warm-up, uint8 feed on the card, "
+                    "in turns bf16, int8, int8, bf16; img/s on the host clock, 10 rounds of "
+                    "predict_batch on 32 PreparedImages",
+          "predict_batch_img_per_s_batch32": rates,
+          "head_gap_int8_vs_bf16_batch32": gaps, "anchor_peak_agreement": peak_agreement,
+          "objects_int8_batch32": sum(len(a.objects) for a in anns),
+          "evaluate_int8_wall_s": evaluate_s, "convert_export_int8_calibrated_s": convert_s,
+          "anchor_f1_own_predictions": f1,
+          "card_vs_cpu_int8_small_fp32": {"config": "128x128 fpn_depth=32 fp32 (TF32 off), batch 4",
+                                          **card_vs_cpu},
+          "launches": launches, "launches_int8_predictor": after_predict})
+    # JAX tests/test_int8.py:84's bar on the int8 model's gap from float
+    if max(gaps.values()) > 0.25:
+        raise AssertionError(f"int8 head departs from bf16: {gaps}")
+    # card against CPU: each int8 conv is bit-identical on the same input;
+    # the whole model is not, because the fp32 stem and BN differ by ulps
+    # and an int8 rounding flip they cause moves an activation by one step
+    # (1/127 of its range) and compounds (0.94 of the int8-vs-fp32 gap
+    # measured on this card; the CPU tests measure such cascades up to
+    # 1.06 of it against the JAX package): the bar is 1.5 times that gap
+    if layers_equal != len(seen) or len(seen) != 42:
+        raise AssertionError(f"an int8 conv differs between card and CPU: {card_vs_cpu}")
+    if card_vs_cpu["gap"] > 1.5 * card_vs_cpu["int8_vs_fp32_gap"]:
+        raise AssertionError(f"int8 on the card departs from int8 on the CPU: {card_vs_cpu}")
     return launches
 
 
@@ -920,11 +1401,11 @@ def _time_train_steps(cfg, b: int, warmup: int = 5, iters: int = 20) -> dict:
             **_device_busy(lambda: train_step(state, images, kp, cfg, augment=True), ms)}
 
 
-def _device_busy(step, ms_per_step: float, n: int = 3) -> dict:
+def _device_busy(step, ms_per_step: float, n: int = 3, top: int = 5) -> dict:
     """A torch.profiler (CUPTI) trace of `n` steps: the card's busy ms a
     step (kernels, copies and sets; no annotation ranges), its idle share
-    of the unprofiled step time `ms_per_step`, and the 5 kernels that take
-    most of it."""
+    of the unprofiled step time `ms_per_step`, and the `top` kernels that
+    take most of it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -941,9 +1422,9 @@ def _device_busy(step, ms_per_step: float, n: int = 3) -> dict:
     busy = sum(by_name.values())
     if not busy:
         raise AssertionError("the profiler saw no device time in the train steps")
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     return {"device_busy_ms_per_step": busy, "device_idle_share": 1.0 - busy / ms_per_step,
-            "top_kernels_ms_per_step": [[name[:90], ms] for name, ms in top]}
+            "top_kernels_ms_per_step": [[name[:120], ms] for name, ms in ranked]}
 
 
 def _write_annotated(directory: Path, n: int, seed: int) -> None:
@@ -1132,8 +1613,13 @@ def main(argv=None) -> int:
     if args.parent is not None:
         phase_parent(card, args.parent.resolve())
     by_path = {"serve": phase_serve(card, args.load_model),
-               "topk_variants": phase_topk_variants(card),
-               "evaluate_detect": phase_evaluate_detect(card, args.load_model)}
+               "topk_variants": phase_topk_variants(card)}
+    with tempfile.TemporaryDirectory(prefix="sdnet-smoke-") as work:
+        work = Path(work)
+        by_path["evaluate_detect"], ckpt, gt_dir = phase_evaluate_detect(
+            card, args.load_model, work)
+        by_path["export"] = phase_export(card, work, ckpt, gt_dir)
+        by_path["int8"] = phase_int8(card, work, ckpt, gt_dir)
     phase_reference(card)
     by_path["train"] = phase_train(card)
 

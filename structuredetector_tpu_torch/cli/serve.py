@@ -1,6 +1,7 @@
 """HTTP inference server with micro-batching, on the port.
 
     python -m structuredetector_tpu_torch.cli.serve --load_model model.pth [config flags]
+    python -m structuredetector_tpu_torch.cli.serve --artifact model.sdz
 
 POST an image to /detect, get the annotation JSON back (reference
 schema, original pixel coordinates). Concurrent requests group into
@@ -43,10 +44,14 @@ def main(argv=None):
     p.add_argument("--no_warmup", action="store_true",
                    help="Skip running each power-of-two batch shape once at "
                         "startup.")
+    p.add_argument("--artifact", type=str, default=None,
+                   help="Serve an exported .sdz artifact instead of a checkpoint "
+                        "(no other model flags; decode parameters come from its "
+                        "metadata). It must be traced for --device.")
     args, rest = p.parse_known_args(argv)
 
     from ..config import config_from_args
-    from ..predictor import Predictor
+    from ..predictor import ExportPredictor, Predictor
     from ..serve import (
         measure_device_ms_per_img,
         probe_h2d_mbps,
@@ -55,10 +60,18 @@ def main(argv=None):
         run_server,
     )
 
-    config = config_from_args(rest)
-    if not config.pretrained_model:
-        raise SystemExit("No model to serve. Use '--load_model <model.pth>'.")
-    predictor = Predictor(config, device=args.device)
+    if args.artifact:
+        if rest:
+            raise SystemExit(
+                f"unrecognized arguments with --artifact: {' '.join(rest)} "
+                "(model/decode flags come from the artifact metadata)")
+        predictor = ExportPredictor(args.artifact, device=args.device)
+    else:
+        config = config_from_args(rest)
+        if not config.pretrained_model:
+            raise SystemExit("No model to serve. Use '--load_model <model.pth>' "
+                             "or '--artifact <model.sdz>'.")
+        predictor = Predictor(config, device=args.device)
 
     measured = None  # (h2d MB/s, device ms/img), taken once
     if args.max_batch == "auto" or (args.pipeline and not args.pipeline_force):
@@ -88,7 +101,7 @@ def main(argv=None):
         # (cuDNN picks its algorithms per shape), not on a live request
         from PIL import Image
 
-        dummy = Image.new("RGB", (config.width, config.height))
+        dummy = Image.new("RGB", (predictor.config.width, predictor.config.height))
         sizes, b = [], 1
         while b < args.max_batch:
             sizes.append(b)

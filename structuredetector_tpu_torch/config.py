@@ -6,7 +6,7 @@ reference's flag names, defaults and invariants
 line works unchanged, plus the JAX package's training flags. What the
 port does not do yet is accepted only at its default and raises a
 named error otherwise (`--data_parallel`, `--model_parallel`,
-`--backbone`, `--s2d_stem`, `--head_conv`, `--int8`);
+`--backbone`, `--s2d_stem`, `--head_conv`);
 `--native_io`/`--no_native_io`/`--native_io_fast` and `--compile_cache`
 are accepted and ignored (the port decodes images with PIL and compiles
 nothing ahead). The device is a `--device` flag of each CLI.
@@ -95,13 +95,15 @@ class Config:
     debug_nans: bool = False  # autograd anomaly detection
     resume_dir: Optional[Path] = None  # trainings/<ts> directory to resume
 
+    # inference-only int8 convs (models.quantize)
+    int8: bool = False
+
     # accepted only at these defaults until the port has them
     data_parallel: int = 0
     model_parallel: int = 1
     backbone: str = "resnet34"
     s2d_stem: bool = False
     head_conv: int = 0
-    int8: bool = False
 
     seed: int = DEFAULT_SEED
     num_workers: int = -1  # -1 = auto, min(cpu_count, 4) like the reference
@@ -208,7 +210,6 @@ class Config:
             (not self.s2d_stem, "--s2d_stem: the port has the 7x7 stem only"),
             (self.head_conv == 0, f"--head_conv {self.head_conv}: "
              "the port has the single 1x1 head only"),
-            (not self.int8, "--int8: int8 inference is not ported yet"),
         ]
         for ok, message in not_ported:
             if not ok:
@@ -378,7 +379,10 @@ def build_parser(parser: Optional[argparse.ArgumentParser] = None) -> argparse.A
     p.add_argument("--head_conv", type=int, default=d.head_conv,
                    help="Hidden head width: 0 (the reference's 1x1 head) only "
                         "in the port.")
-    p.add_argument("--int8", action="store_true", help="Not in the port: raises.")
+    p.add_argument("--int8", action="store_true",
+                   help="Inference-only int8 convs (per-sample dynamic activation "
+                        "and per-channel weight quantization); stem and head stay "
+                        "float. Training with it raises.")
     p.add_argument("--debug_nans", action="store_true",
                    help="Turn on autograd anomaly detection (NaN/inf in backward "
                         "raise where they arise).")

@@ -289,6 +289,29 @@ class ValidationAugmentation:
         return self.transform(image, target)
 
 
+class RawImage:
+    """PIL -> float32 HWC in [0, 255], not normalized: the feed of an
+    exported graph that normalizes itself (reference CoreMLTransforms,
+    transforms.py:289-304)."""
+
+    def __call__(self, image, target=None):
+        arr = _hwc(image, np.float32)
+        return arr if target is None else (arr, target)
+
+
+class ExportTransforms:
+    """Resize -> RawImage -> Flatten: evaluation samples for an artifact
+    exported with `--norm` (JAX `augment.py:448-459`)."""
+
+    def __init__(self, config):
+        self.transform = Compose(
+            [Resize((config.width, config.height)), RawImage(), Flatten(config)]
+        )
+
+    def __call__(self, image, target):
+        return self.transform(image, target)
+
+
 class PredictionTransformation:
     """Image-only path for prediction (transforms.py:270-286).
 

@@ -10,10 +10,12 @@ The port of `structuredetector_tpu/data/decoders.py`:
   from grid to input pixels. `return_metadata=True` also returns the
   sigmoid heatmaps, the raw top-k rows and the conf-filtered
   `raw_parts` the Evaluator's part metric reads (`decoders.py:141-177`).
+- `ExportDecoder`: `Decoder` for an exported graph, whose sigmoid + NMS
+  already ran inside it (reference `CoreMLDecoder`,
+  `decoders.py:182-184`): no second front.
 - `KeypointDecoder`: flat keypoints, no grouping (`decoders.py:345-423`).
 
-The export path's decoder waits for the export slice of the port. Maps
-are NCHW, as the port's model emits them.
+Maps are NCHW, as the port's model emits them.
 """
 
 from __future__ import annotations
@@ -29,6 +31,8 @@ from ..ops.kernels import sigmoid_nms
 
 
 class Decoder:
+    apply_sigmoid_nms = True
+
     def __init__(self, config):
         self.config = config
         self.label_map = config.r_labels
@@ -48,6 +52,7 @@ class Decoder:
             max_parts=self.max_parts,
             conf_thresh=conf_thresh,
             dist_thresh=dist_thresh,
+            apply_sigmoid_nms=self.apply_sigmoid_nms,
             nms_fn=sigmoid_nms,
             with_metadata=with_metadata,
         )
@@ -151,6 +156,14 @@ class Decoder:
                 image_annotation.resize((out_w, out_h), (in_w, in_h))
             )
         return annotations
+
+
+class ExportDecoder(Decoder):
+    """For exported graphs with sigmoid + NMS fused in (JAX
+    `decoders.py:199-203`): the maps it reads are already suppressed
+    probabilities, so it runs no front and launches no kernel."""
+
+    apply_sigmoid_nms = False
 
 
 class KeypointDecoder:

@@ -19,6 +19,11 @@ Precision: with `dtype=torch.bfloat16` the forward runs under autocast
 runs with TF32 off, so fp32 means fp32. The head output is float32
 either way. In train mode the BatchNorm layers follow flax's running
 variance (`resnet.BatchNorm2d`).
+
+With `int8`, every residual-block and FPN conv is an `Int8Conv2d`
+(`models.quantize`): int8 activations and weights, int32 sums, the
+output in the compute dtype; the stem and the head stay float. Int8 is
+inference-only: a train-mode forward raises.
 """
 
 from __future__ import annotations
@@ -28,10 +33,21 @@ from typing import Optional
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from ..ops.decode import split_head_output
+from .quantize import swap_int8_convs
 from .resnet import STAGE_SIZES, STAGE_WIDTHS, BatchNorm2d, stage, stem
+
+
+def upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:
+    """Nearest x2 upsample of (B, C, H, W) as a broadcast copy (JAX
+    `network.py:35-40`): the values of `F.interpolate(x, scale_factor=2)`,
+    and the dtype of `x` under autocast too. CUDA autocast runs
+    `upsample_nearest2d` in float32, while a `torch.export` trace on the
+    card records it in bf16, so an exported int8 program's dtype check on
+    the FPN sum failed at run time."""
+    b, c, h, w = x.shape
+    return x[:, :, :, None, :, None].expand(b, c, h, 2, w, 2).reshape(b, c, 2 * h, 2 * w)
 
 
 class FpnBlock(nn.Module):
@@ -48,7 +64,7 @@ class FpnBlock(nn.Module):
         )
 
     def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
-        return self.conv(F.interpolate(x, scale_factor=2, mode="nearest") + self.lateral(skip))
+        return self.conv(upsample2x_nearest(x) + self.lateral(skip))
 
 
 class Head(nn.Module):
@@ -86,11 +102,13 @@ class SDNet(nn.Module):
     """Anchor+parts structure detection network, output stride 4."""
 
     def __init__(self, n_labels: int, n_parts: int, fpn_depth: int = 128,
-                 in_channels: int = 3, dtype: torch.dtype = torch.float32):
+                 in_channels: int = 3, dtype: torch.dtype = torch.float32,
+                 int8: bool = False):
         super().__init__()
         self.n_labels = n_labels
         self.n_parts = n_parts
         self.dtype = dtype
+        self.int8 = int8
         self.adpater = stem(in_channels)
         in_ch = 64
         for i, (n_blocks, width) in enumerate(zip(STAGE_SIZES, STAGE_WIDTHS), start=1):
@@ -101,6 +119,8 @@ class SDNet(nn.Module):
         self.up3 = FpnBlock(STAGE_WIDTHS[1], fpn_depth)
         self.up4 = FpnBlock(STAGE_WIDTHS[0], fpn_depth)
         self.head = Head(fpn_depth, n_labels + n_parts + 4)
+        if int8:
+            swap_int8_convs(self, dtype)
 
     @property
     def out_channels(self) -> int:
@@ -110,6 +130,8 @@ class SDNet(nn.Module):
         """x: (B, in_channels, H, W) normalized float32. Returns the
         (B, M+N+4, H/4, W/4) float32 head output with `raw_output`, else
         its split into 'anchor_hm', 'part_hm', 'offsets', 'embeddings'."""
+        if self.int8 and self.training:
+            raise ValueError("int8 is an inference-only mode; train in float")
         with _precision(self.dtype, x.device):
             c2 = self.down1(self.adpater(x))
             c3 = self.down2(c2)
@@ -129,6 +151,7 @@ def build_model(config, dtype: Optional[torch.dtype] = None) -> SDNet:
         fpn_depth=config.fpn_depth,
         in_channels=config.in_channels,
         dtype=dtype if dtype is not None else config.compute_dtype,
+        int8=config.int8,
     )
 
 

@@ -17,6 +17,10 @@ is read without flax (`models.msgpack`) and mapped by
 `{'params', 'batch_stats'}` tree of numpy arrays (HWIO kernels) becomes
 a state_dict (OIHW kernels); `jax_tree_from_state_dict` is its inverse,
 so the port writes checkpoints the JAX package loads (`save_msgpack`).
+Int8 state crosses too: a tree from JAX `prequantize_variables` (int8
+HWIO kernels with `kernel_scale`) and from
+`calibrate_activation_scales` (`act_scale`) maps onto the port's int8
+OIHW weights and its `weight_scale` / `act_scale` buffers, exactly.
 """
 
 from __future__ import annotations
@@ -42,6 +46,16 @@ def _vec(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x, np.float32))
 
 
+def _put_conv(out: Dict[str, torch.Tensor], prefix: str, p: Mapping[str, Any]) -> None:
+    """A conv's kernel (float, or int8 from JAX `prequantize_variables`),
+    its bias, and the int8 scales where the tree has them."""
+    out[f"{prefix}.weight"] = _conv_oihw(p["kernel"])
+    for src, dst in (("bias", "bias"), ("kernel_scale", "weight_scale"),
+                     ("act_scale", "act_scale")):
+        if src in p:
+            out[f"{prefix}.{dst}"] = _vec(p[src])
+
+
 def _put_bn(out: Dict[str, torch.Tensor], prefix: str,
             params: Mapping[str, Any], stats: Mapping[str, Any]) -> None:
     out[f"{prefix}.weight"] = _vec(params["scale"])
@@ -64,30 +78,27 @@ def state_dict_from_jax(tree: Mapping[str, Any]) -> "OrderedDict[str, torch.Tens
         raise ValueError("only the resnet34 encoder maps to the port's SDNet")
 
     out: "OrderedDict[str, torch.Tensor]" = OrderedDict()
-    out["adpater.0.weight"] = _conv_oihw(enc_p["conv1"]["kernel"])
+    _put_conv(out, "adpater.0", enc_p["conv1"])
     _put_bn(out, "adpater.1", enc_p["bn1"], enc_s["bn1"])
     for stage_i, n in enumerate(STAGE_SIZES):
         for block in range(n):
             src, dst = f"layer{stage_i + 1}_{block}", f"down{stage_i + 1}.{block}"
             p, s = enc_p[src], enc_s[src]
-            out[f"{dst}.conv1.weight"] = _conv_oihw(p["conv1"]["kernel"])
+            _put_conv(out, f"{dst}.conv1", p["conv1"])
             _put_bn(out, f"{dst}.bn1", p["bn1"], s["bn1"])
-            out[f"{dst}.conv2.weight"] = _conv_oihw(p["conv2"]["kernel"])
+            _put_conv(out, f"{dst}.conv2", p["conv2"])
             _put_bn(out, f"{dst}.bn2", p["bn2"], s["bn2"])
             if "downsample_conv" in p:
-                out[f"{dst}.downsample.0.weight"] = _conv_oihw(p["downsample_conv"]["kernel"])
+                _put_conv(out, f"{dst}.downsample.0", p["downsample_conv"])
                 _put_bn(out, f"{dst}.downsample.1", p["downsample_bn"], s["downsample_bn"])
 
-    out["up1.weight"] = _conv_oihw(params["up1"]["kernel"])
-    out["up1.bias"] = _vec(params["up1"]["bias"])
+    _put_conv(out, "up1", params["up1"])
     for k in (2, 3, 4):
         blk_p, blk_s = params[f"up{k}"], stats[f"up{k}"]
-        out[f"up{k}.lateral.weight"] = _conv_oihw(blk_p["lateral"]["kernel"])
-        out[f"up{k}.lateral.bias"] = _vec(blk_p["lateral"]["bias"])
-        out[f"up{k}.conv.0.weight"] = _conv_oihw(blk_p["conv"]["kernel"])
+        _put_conv(out, f"up{k}.lateral", blk_p["lateral"])
+        _put_conv(out, f"up{k}.conv.0", blk_p["conv"])
         _put_bn(out, f"up{k}.conv.1", blk_p["bn"], blk_s["bn"])
-    out["head.conv.weight"] = _conv_oihw(params["head"]["kernel"])
-    out["head.conv.bias"] = _vec(params["head"]["bias"])
+    _put_conv(out, "head.conv", params["head"])
     return out
 
 
@@ -106,7 +117,11 @@ def jax_tree_from_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     it."""
 
     def conv(prefix):
-        return {"kernel": _hwio(sd[f"{prefix}.weight"])}
+        out = {"kernel": _hwio(sd[f"{prefix}.weight"])}
+        for src, dst in (("weight_scale", "kernel_scale"), ("act_scale", "act_scale")):
+            if f"{prefix}.{src}" in sd:
+                out[dst] = _np(sd[f"{prefix}.{src}"])
+        return out
 
     def bn(prefix):
         return ({"scale": _np(sd[f"{prefix}.weight"]), "bias": _np(sd[f"{prefix}.bias"])},

@@ -107,6 +107,7 @@ def decode_feature_maps(
     max_parts: int,
     conf_thresh: float,
     dist_thresh: float,
+    apply_sigmoid_nms: bool = True,
     nms_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
     with_metadata: bool = False,
 ) -> Dict[str, torch.Tensor]:
@@ -114,7 +115,9 @@ def decode_feature_maps(
 
     `nms_fn` replaces the plain sigmoid + NMS front (the `Decoder` passes
     kernel A, `ops.kernels.sigmoid_nms`); it takes contiguous float32
-    (B, C, H, W) logits.
+    (B, C, H, W) logits. `apply_sigmoid_nms=False` is the exported-model
+    path, whose graph already ran sigmoid + NMS (JAX `decode.py:124-135`):
+    no front runs, and the metadata heatmaps are the suppressed maps.
 
     Returns:
       anchors (B, K, 4): x, y, score, label   (grid coords)
@@ -125,16 +128,21 @@ def decode_feature_maps(
     anchor_hm_sig (B, M, H, W) and part_hm_sig (B, N, H, W) and the
     gathered part embeddings (B, P, 2).
     """
-    front = nms_fn if nms_fn is not None else lambda x: plateau_nms(clamped_sigmoid(x))
-    anchor_hm = front(outputs["anchor_hm"].float().contiguous())
-    part_hm = front(outputs["part_hm"].float().contiguous())
+    anchor_hm = outputs["anchor_hm"].float().contiguous()
+    part_hm = outputs["part_hm"].float().contiguous()
+    anchor_sig, part_sig = anchor_hm, part_hm
+    if apply_sigmoid_nms:
+        front = nms_fn if nms_fn is not None else lambda x: plateau_nms(clamped_sigmoid(x))
+        if with_metadata:
+            anchor_sig, part_sig = clamped_sigmoid(anchor_hm), clamped_sigmoid(part_hm)
+        anchor_hm, part_hm = front(anchor_hm), front(part_hm)
     anchor_sel = topk_per_class(anchor_hm, max_objects)
     part_sel = topk_per_class(part_hm, max_parts)
     out = _gather_tail(outputs, anchor_sel, part_sel, conf_thresh, dist_thresh)
     if with_metadata:
         out.update(
-            anchor_hm_sig=clamped_sigmoid(outputs["anchor_hm"].float()),
-            part_hm_sig=clamped_sigmoid(outputs["part_hm"].float()),
+            anchor_hm_sig=anchor_sig,
+            part_hm_sig=part_sig,
             embeddings=gather_features(outputs["embeddings"].float(), part_sel[1]),
         )
     return out

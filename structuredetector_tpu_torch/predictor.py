@@ -9,7 +9,10 @@ coordinates. One forward serves both decode paths:
 - `fast_path=False`: the `Decoder`, with sigmoid + NMS in kernel A and a
   plain top-k.
 
-Both give the same detections from the same head output.
+Both give the same detections from the same head output. With
+`config.int8` the forward runs the int8 convs (`models.quantize`).
+`ExportPredictor` serves a `.sdz` artifact (`export.py`) instead of a
+checkpoint.
 """
 
 from __future__ import annotations
@@ -226,12 +229,7 @@ class Predictor:
         annotations, _, _ = self.decoder.fetch_and_materialize(
             dec, out_hw, self.config.conf_threshold
         )
-        for ann, im in zip(annotations, sources):
-            ann.resize((self.config.width, self.config.height), im.size)
-            ann.img_size = im.size
-            if getattr(im, "filename", None):
-                ann.image_path = Path(im.filename)
-        return annotations
+        return _rescale(annotations, sources, self.config)
 
     def predict_tiled(
         self,
@@ -287,3 +285,126 @@ class Predictor:
         kept = merge_tiled_objects(kept_objects, radius)
         path = getattr(image, "filename", "") or "tiled"
         return ImageAnnotation(path, objects=kept, img_size=image.size)
+
+
+def _rescale(annotations, sources, config) -> List[ImageAnnotation]:
+    """Annotations in network-input pixels -> each source's own pixels."""
+    for ann, im in zip(annotations, sources):
+        ann.resize((config.width, config.height), im.size)
+        ann.img_size = im.size
+        if getattr(im, "filename", None):
+            ann.image_path = Path(im.filename)
+    return annotations
+
+
+class ExportPredictor:
+    """`Predictor`'s surface over a `.sdz` artifact (`export.load_exported`,
+    JAX `predictor.py:341-455`): no model code or checkpoint, the decode
+    parameters from the artifact's metadata. It gives `serve` what it
+    reads of a predictor (`config`, `device`, `feed_uint8`, `to_device`,
+    `forward`, `decode`, the submit/collect split).
+
+    A static-batch artifact runs in chunks of its batch, the last padded
+    with copies of its last image; a dynamic-batch one takes any batch.
+    The program holds sigmoid + NMS, so `ExportDecoder` decodes its
+    output with the plain top-k (no kernel)."""
+
+    def __init__(self, artifact, device="cuda", **config_overrides):
+        """`config_overrides` sets decode parameters the metadata does not
+        carry (max_objects, conf_threshold, ...). The artifact must have
+        been traced for `device`."""
+        from .data.augment import Normalize
+        from .data.decoders import ExportDecoder
+        from .export import config_from_metadata, load_exported
+
+        self.device = resolve_device(device)
+        self._call, meta = load_exported(Path(artifact).expanduser().resolve(), self.device)
+        self.config = config = config_from_metadata(meta, **config_overrides)
+        self.meta = meta
+        self.decoder = ExportDecoder(config)
+        self.batch_size = None if meta.get("dynamic_batch") else int(meta.get("batch_size", 1))
+        self._uint8 = meta.get("input_dtype") == "uint8"
+        self._normalized = bool(meta.get("normalized"))
+        self._host_normalize = Normalize()
+
+    @property
+    def feed_uint8(self) -> bool:
+        """True when the artifact's input is raw uint8 RGB."""
+        return self._uint8
+
+    @property
+    def feed_normalize(self) -> bool:
+        """True when the host must ImageNet-normalize the feed: the
+        artifact was exported without --norm / --uint8_input."""
+        return not self._uint8 and not self._normalized
+
+    def _transform(self, image) -> np.ndarray:
+        from PIL import Image
+
+        resized = image.resize((self.config.width, self.config.height), Image.BILINEAR)
+        if self._uint8:
+            return np.asarray(resized, np.uint8)
+        if self._normalized:  # the program owns /255 + mean/std: raw [0, 255] floats
+            return np.asarray(resized, np.float32)
+        return self._host_normalize(resized)
+
+    def to_device(self, arrays) -> torch.Tensor:
+        """Stack (H, W, 3) host feeds into one batch on the device."""
+        batch = torch.from_numpy(arrays if isinstance(arrays, np.ndarray) else np.stack(arrays))
+        if self.device.type == "cuda":
+            return batch.pin_memory().to(self.device, non_blocking=True)
+        return batch
+
+    def forward(self, batch: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, 3) feed on the device -> the program's (B, M+N+4,
+        H/4, W/4) output: suppressed heatmaps, raw regression maps."""
+        return self._call(batch)
+
+    @torch.inference_mode()
+    def decode(self, head: torch.Tensor):
+        cfg = self.config
+        outputs = split_head_output(head, cfg.n_labels, cfg.n_parts)
+        return self.decoder.decode_arrays(outputs, cfg.conf_threshold,
+                                          cfg.decoder_dist_thresh)
+
+    def predict_image(self, image) -> ImageAnnotation:
+        return self.predict_batch([image])[0]
+
+    def predict_batch(self, images: Sequence) -> List[ImageAnnotation]:
+        return self.predict_batch_collect(self.predict_batch_submit(images))
+
+    def predict_batch_submit(self, images: Sequence) -> Optional[tuple]:
+        """Device half: every chunk queued on the device, nothing fetched."""
+        if not images:
+            return None
+        sources, arrays = [], []
+        for im in images:
+            if isinstance(im, PreparedImage):
+                sources.append(im)
+                arrays.append(im.array)
+                continue
+            im = _as_rgb(im)
+            sources.append(im)
+            arrays.append(self._transform(im))
+        step = self.batch_size or len(arrays)
+        chunks = []
+        for start in range(0, len(arrays), step):
+            chunk = arrays[start : start + step]
+            n = len(chunk)
+            chunk = chunk + [chunk[-1]] * (step - n)  # pad a static batch
+            head = self.forward(self.to_device(chunk))
+            chunks.append((self.decode(head), tuple(head.shape[2:]), n))
+        return chunks, sources
+
+    def predict_batch_collect(self, handle) -> List[ImageAnnotation]:
+        """Host half: fetch each chunk's decode tensors and build the
+        annotations."""
+        if handle is None:
+            return []
+        chunks, sources = handle
+        annotations: List[ImageAnnotation] = []
+        for dec, out_hw, n in chunks:
+            anns, _, _ = self.decoder.fetch_and_materialize(dec, out_hw,
+                                                            self.config.conf_threshold)
+            annotations.extend(anns[:n])
+        return _rescale(annotations, sources, self.config)

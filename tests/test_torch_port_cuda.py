@@ -214,3 +214,73 @@ def test_train_step_on_card_matches_cpu():
     stats = train_step(state, u8, {k: torch.from_numpy(v).cuda() for k, v in kp.items()}, cfg,
                        augment=True)
     assert np.isfinite(float(stats["total_loss"]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,cout,k", [((2, 64, 64, 64), 64, 3), ((1, 16, 16, 512), 512, 3),
+                                          ((2, 32, 32, 128), 256, 1), ((1, 2, 2, 512), 512, 3),
+                                          ((1, 4, 4, 256), 256, 1), ((1, 3, 5, 12), 20, 3)])
+def test_int8_product_on_card_equals_cpu(shape, cout, k):
+    """The int8 im2col + `torch._int_mm` on the card against the CPU's
+    exact product (a float64 convolution of the same int8 values), at
+    full int8 range: model shapes, maps of 16 pixels or fewer and of 15
+    (each sample's rows padded to 32, which cuBLASLt's int8 GEMM needs),
+    and K, N off multiples of 8."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from structuredetector_tpu_torch.models.quantize import int8_conv_nhwc, int8_conv_reference
+
+    g = torch.Generator().manual_seed(sum(shape) + cout)
+    x = torch.randint(-127, 128, shape, dtype=torch.int8, generator=g)
+    w = torch.randint(-127, 128, (cout, shape[3], k, k), dtype=torch.int8, generator=g)
+    stride, padding = (1, 1), (k // 2, k // 2)
+    got = int8_conv_nhwc(x.cuda(), w.cuda(), stride, padding)
+    assert got.dtype == torch.int32 and got.is_cuda
+    assert torch.equal(got.cpu(), int8_conv_reference(x, w, stride, padding))
+    assert torch.equal(got.cpu(), int8_conv_nhwc(x, w, stride, padding))
+
+
+@pytest.mark.cuda
+def test_export_predictor_on_card(tmp_path):
+    """An int8 artifact with static scales, traced on the card: it runs
+    there through `ExportPredictor` (dynamic batch, uint8 feed), its
+    output equals the live graph's, and it refuses the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from PIL import Image
+
+    from structuredetector_tpu_torch.config import Config
+    from structuredetector_tpu_torch.export import (
+        ArtifactDeviceError,
+        export_model,
+        load_exported,
+        make_export_fn,
+    )
+    from structuredetector_tpu_torch.models.network import init_model
+    from structuredetector_tpu_torch.models.quantize import (
+        calibrate_activation_scales,
+        prequantize_variables,
+    )
+    from structuredetector_tpu_torch.predictor import ExportPredictor
+
+    cfg = Config(width=128, height=128, fpn_depth=32, int8=True).set_labels(
+        ["bean", "maize"], ["leaf"])
+    model = init_model(cfg).cuda()
+    rng = np.random.default_rng(2)
+    cal = torch.from_numpy(rng.normal(0, 1, (4, 3, 128, 128)).astype(np.float32)).cuda()
+    calibrate_activation_scales(model, [cal])
+    path = export_model(cfg, model.state_dict(), tmp_path / "m.sdz", dynamic_batch=True,
+                        fold_normalization=True, uint8_input=True, device="cuda")
+    with pytest.raises(ArtifactDeviceError):
+        load_exported(path, device="cpu")
+    call, meta = load_exported(path, device="cuda")
+    assert meta["int8"] and meta["platforms"] == ["cuda"]
+    images = rng.integers(0, 256, (3, 128, 128, 3), np.uint8)
+    got = call(images)
+    graph = make_export_fn(prequantize_variables(model), 2, 1, fold_normalization=True).cuda()
+    with torch.inference_mode():
+        want = graph(torch.from_numpy(images).cuda())
+    assert got.is_cuda and torch.equal(got, want)
+    predictor = ExportPredictor(path)
+    anns = predictor.predict_batch([Image.fromarray(a) for a in images])
+    assert len(anns) == 3 and predictor.device.type == "cuda"
