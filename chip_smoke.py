@@ -69,7 +69,29 @@ of JAX or of the JAX package. Phases, one JSON line each:
    annotated PNGs (16 to validate, kernel A's counter must rise), then
    `cli.evaluate` on the `model_best_loss.msgpack` it wrote; one fp32
    step of a small model on the card against the CPU (loss within 1e-4
-   relative, gradients within the bars stated there).
+   relative, gradients within the bars stated there);
+11. variants (main path of kernels A and B for the model variants): at
+   full width (512x512, fpn_depth 128, bf16, labels.json, seeded
+   weights) resnet18, resnet50, resnet34 with `--s2d_stem` and with
+   `--head_conv 64`, each: the batch-32 forward (CUDA events) and its
+   peak memory, `predict_batch` img/s (kernel B's counter must rise),
+   the Decoder path (kernel A) identical to the serving decode, a
+   batch-32 train step (ms, peak memory, finite loss, FLOPs' share of
+   the bf16 peak, idle share), a small fp32 model on the card against
+   the CPU; then resnet50 through `cli.train --pretrained` (a
+   torchvision-layout resnet50 written from a seeded model into a
+   temporary TORCH_HOME; kernel A in validation) and `cli.evaluate
+   --backbone resnet50` on its checkpoint (without the flag it must
+   raise); a 7x7 checkpoint in an s2d model (heads within the bf16 bar,
+   fp32 detections equal); resnet50 int8 with static scales (every int8
+   conv shape exact against the CPU, the forward beside bf16 in turns);
+   a `convert_export --head_conv 64` artifact whose `ExportPredictor`
+   annotations equal `Predictor`'s;
+12. benchmark: `cli.benchmark --json` in a process of its own for
+   resnet34 bf16, resnet50 bf16 and resnet34 `--int8_static`, each
+   printed; kernel A counted by the process itself, and `forward_fps`
+   within 10 % of the batch-32 forward the serve, variants and int8
+   phases timed in this run.
 
 Each main path is driven with the launch counts set to 0 just before it
 and read just after. Then the `{"kernels": [...]}` line, the nvidia-smi
@@ -507,8 +529,9 @@ def _post(url: str, body: bytes) -> dict:
         return json.loads(resp.read())
 
 
-def phase_serve(card: str, load_model) -> dict:
-    """The main path; returns the launch counts of its run."""
+def phase_serve(card: str, load_model):
+    """The main path; returns the launch counts of its run and the batch-32
+    forward's ms."""
     import numpy as np
     import torch
     from PIL import Image
@@ -664,7 +687,7 @@ def phase_serve(card: str, load_model) -> dict:
     # the earlier fan-out init; the bar is 0.08
     if bf16_rel > 0.08:
         raise AssertionError(f"bf16 head departs from fp32 by {bf16_rel:.3f} of scale")
-    return launches
+    return launches, fwd_ms
 
 
 def phase_reference(card: str) -> None:
@@ -1119,6 +1142,51 @@ def _head_gap(got, want) -> float:
     return float((got - want).double().pow(2).mean().sqrt() / (want.double().std() + 1e-8))
 
 
+def _int8_products_exact(pred, feed, small_maps: bool = False) -> list:
+    """The im2col product on every int8 conv shape `pred`'s model runs on
+    `feed`, exact against the CPU's float64 convolution of the same int8
+    values, and with `small_maps` on maps of 16 rows or fewer, which take
+    the padded path. Returns the shapes checked: [x, w, stride, padding,
+    rows]."""
+    import torch
+
+    from structuredetector_tpu_torch.models.quantize import (
+        int8_conv_nhwc,
+        int8_conv_reference,
+        int8_convs,
+    )
+
+    captured = {}
+
+    def capture(module, args):
+        x_q, _ = module.quantize_input(args[0])
+        w_q, _ = module.int8_weight()
+        key = (tuple(x_q.shape), tuple(w_q.shape), module.stride, module.padding)
+        captured.setdefault(key, (x_q.permute(0, 2, 3, 1).contiguous(), w_q))
+
+    hooks = [m.register_forward_pre_hook(capture) for m in int8_convs(pred.model)]
+    pred.forward(feed)
+    for h in hooks:
+        h.remove()
+    g = torch.Generator().manual_seed(1)
+    small = {(4, 512, 3): (1, 2, 2, 512), (16, 256, 1): (1, 4, 4, 256), (8, 128, 3): (2, 2, 2, 128),
+             (15, 64, 3): (1, 3, 5, 64)} if small_maps else {}
+    for (rows, cin, k), shape in small.items():
+        x_q = torch.randint(-127, 128, shape, dtype=torch.int8, generator=g).cuda()
+        w_q = torch.randint(-127, 128, (cin, cin, k, k), dtype=torch.int8, generator=g).cuda()
+        captured[("rows<=16",) + shape] = (x_q, w_q)
+    shapes = []
+    for key, (x_q, w_q) in captured.items():
+        stride, padding = (key[2], key[3]) if key[0] != "rows<=16" else ((1, 1), (w_q.shape[2] // 2,) * 2)
+        got = int8_conv_nhwc(x_q, w_q, stride, padding).cpu()
+        want = int8_conv_reference(x_q.cpu(), w_q.cpu(), stride, padding)
+        if not torch.equal(got, want):
+            raise AssertionError(f"the int8 product differs from the CPU's at {key}")
+        shapes.append([list(x_q.shape), list(w_q.shape), list(stride), list(padding),
+                       int(x_q.shape[0] * got.shape[1] * got.shape[2])])
+    return shapes
+
+
 def phase_int8(card: str, tmp: Path, ckpt: Path, gt_dir: Path) -> dict:
     """The JAX package's benchmark configuration, int8 with calibrated
     static scales, in the port at full width, on the evaluate_detect
@@ -1131,7 +1199,8 @@ def phase_int8(card: str, tmp: Path, ckpt: Path, gt_dir: Path) -> dict:
     agreement; kernel B counted on the int8 Predictor path and kernel A
     on `cli.evaluate --int8`; a `convert_export --int8 --calibrate_dir`
     artifact through `evaluate_export`; a small fp32 int8 model on the
-    card against the CPU. Returns the launch counts of the main path."""
+    card against the CPU. Returns the launch counts of the main path and
+    the static-scale int8 forward's ms at batch 32."""
     import numpy as np
     import torch
     from PIL import Image
@@ -1142,8 +1211,6 @@ def phase_int8(card: str, tmp: Path, ckpt: Path, gt_dir: Path) -> dict:
     from structuredetector_tpu_torch.models.network import init_model
     from structuredetector_tpu_torch.models.quantize import (
         calibrate_activation_scales,
-        int8_conv_nhwc,
-        int8_conv_reference,
         int8_convs,
         prequantize_variables,
     )
@@ -1158,38 +1225,8 @@ def phase_int8(card: str, tmp: Path, ckpt: Path, gt_dir: Path) -> dict:
         raise AssertionError("the int8 model must have 42 int8 convs")
     images = [Image.open(p).convert("RGB") for p in sorted((tmp / "images").glob("*.png"))]
 
-    # the im2col product on every int8 conv shape the model runs (one
-    # image), exact against the CPU's float64 convolution of the same int8
-    # values, and on maps of 16 rows or fewer, which take the padded path
-    captured = {}
-
-    def capture(module, args):
-        x_q, _ = module.quantize_input(args[0])
-        w_q, _ = module.int8_weight()
-        key = (tuple(x_q.shape), tuple(w_q.shape), module.stride, module.padding)
-        captured.setdefault(key, (x_q.permute(0, 2, 3, 1).contiguous(), w_q))
-
-    hooks = [m.register_forward_pre_hook(capture) for m in int8_convs(int8.model)]
-    feed1 = int8.to_device([int8.transform(images[0])])
-    int8.forward(feed1)
-    for h in hooks:
-        h.remove()
-    g = torch.Generator().manual_seed(1)
-    small = {(4, 512, 3): (1, 2, 2, 512), (16, 256, 1): (1, 4, 4, 256), (8, 128, 3): (2, 2, 2, 128),
-             (15, 64, 3): (1, 3, 5, 64)}
-    for (rows, cin, k), shape in small.items():
-        x_q = torch.randint(-127, 128, shape, dtype=torch.int8, generator=g).cuda()
-        w_q = torch.randint(-127, 128, (cin, cin, k, k), dtype=torch.int8, generator=g).cuda()
-        captured[("rows<=16",) + shape] = (x_q, w_q)
-    shapes = []
-    for key, (x_q, w_q) in captured.items():
-        stride, padding = (key[2], key[3]) if key[0] != "rows<=16" else ((1, 1), (w_q.shape[2] // 2,) * 2)
-        got = int8_conv_nhwc(x_q, w_q, stride, padding).cpu()
-        want = int8_conv_reference(x_q.cpu(), w_q.cpu(), stride, padding)
-        if not torch.equal(got, want):
-            raise AssertionError(f"the int8 product differs from the CPU's at {key}")
-        shapes.append([list(x_q.shape), list(w_q.shape), list(stride), list(padding),
-                       int(x_q.shape[0] * got.shape[1] * got.shape[2])])
+    shapes = _int8_products_exact(int8, int8.to_device([int8.transform(images[0])]),
+                                  small_maps=True)
 
     # batch-32 feeds; calibration on 16 images, normalized on the host as
     # convert_export --calibrate_dir does
@@ -1325,7 +1362,7 @@ def phase_int8(card: str, tmp: Path, ckpt: Path, gt_dir: Path) -> dict:
         raise AssertionError(f"an int8 conv differs between card and CPU: {card_vs_cpu}")
     if card_vs_cpu["gap"] > 1.5 * card_vs_cpu["int8_vs_fp32_gap"]:
         raise AssertionError(f"int8 on the card departs from int8 on the CPU: {card_vs_cpu}")
-    return launches
+    return launches, fwd[32]["int8"]["mean"]
 
 
 def _train_batch(cfg, b: int, seed: int, normalized: bool):
@@ -1583,6 +1620,322 @@ def phase_train(card: str) -> dict:
     return launches
 
 
+VARIANTS = {"resnet18": dict(backbone="resnet18"), "resnet50": dict(backbone="resnet50"),
+            "resnet34_s2d": dict(s2d_stem=True), "resnet34_head_conv64": dict(head_conv=64)}
+
+
+@contextlib.contextmanager
+def _env(**values):
+    """Environment variables set (None: unset) for the block, then restored."""
+    old = {k: os.environ.get(k) for k in values}
+    try:
+        for k, v in values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _torchvision_resnet50(path: Path, seed: int) -> None:
+    """A torchvision-layout resnet50 ImageNet state_dict (`conv1`, `bn1`,
+    `layer1..4`, `fc`; no `num_batches_tracked`, as the published files
+    have none) from a seeded port encoder: nothing is downloaded."""
+    import torch
+
+    from structuredetector_tpu_torch.models.network import SDNet, init_weights
+
+    sd = {}
+    for key, value in init_weights(SDNet(2, 1, backbone="resnet50"), seed).state_dict().items():
+        head, _, rest = key.partition(".")
+        if key.endswith("num_batches_tracked") or not head.startswith(("adpater", "down")):
+            continue
+        name = {"adpater.0": "conv1", "adpater.1": "bn1"}.get(key.rsplit(".", 1)[0])
+        sd[f"{name}.{key.rsplit('.', 1)[1]}" if name else f"layer{head[4:]}.{rest}"] = value
+    sd["fc.weight"], sd["fc.bias"] = torch.zeros(1000, 2048), torch.zeros(1000)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    torch.save(sd, path)
+
+
+def phase_variants(card: str, tmp: Path):
+    """The model variants at full width (512x512, fpn_depth 128, bf16,
+    labels.json, seeded weights): resnet18, resnet50, resnet34 with the
+    s2d stem and with `--head_conv 64`. For each: the batch-32 forward
+    (CUDA events) and its peak memory, `predict_batch` img/s with kernel
+    B's counter rising, the Decoder path (kernel A) identical to the
+    serving decode from one forward, a batch-32 train step (ms, peak
+    memory, finite loss, FLOPs' share of the bf16 peak, idle share), and
+    a small fp32 model on the card against the CPU. Then once each:
+    resnet50 through `cli.train --pretrained` (a torchvision-layout
+    resnet50 in a temporary TORCH_HOME; kernel A in validation) and
+    `cli.evaluate --backbone resnet50` on its checkpoint; a 7x7
+    checkpoint in an s2d model; resnet50 int8 with static scales (every
+    int8 conv shape exact against the CPU, the forward beside bf16 in
+    turns); a `convert_export --head_conv 64` artifact under
+    `ExportPredictor` against `Predictor`. Returns the launch counts of
+    the run and the batch-32 forward ms of each variant."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from structuredetector_tpu_torch.cli import convert_export, evaluate, train
+    from structuredetector_tpu_torch.config import Config
+    from structuredetector_tpu_torch.models.quantize import (
+        calibrate_activation_scales,
+        int8_convs,
+        prequantize_variables,
+    )
+    from structuredetector_tpu_torch.models.weights import save_msgpack
+    from structuredetector_tpu_torch.ops.device_augment import normalize_images
+    from structuredetector_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from structuredetector_tpu_torch.predictor import ExportPredictor, Predictor, PreparedImage
+
+    t_phase = time.perf_counter()
+    labels = ROOT / "labels.json"
+    base = Config(labels_path=labels).finalize()
+    rng = np.random.default_rng(926354916)
+    arrays = [rng.integers(0, 256, (base.height, base.width, 3), np.uint8) for _ in range(32)]
+    feed = [PreparedImage(a, (base.width, base.height)) for a in arrays]
+    small_arrays = [rng.integers(0, 256, (128, 128, 3), np.uint8) for _ in range(4)]
+    result, forward_ms = {}, {}
+
+    # --- the main path: counts set to 0 just before, read just after
+    reset_launch_counts()
+    for name, flags in VARIANTS.items():
+        cfg = dataclasses.replace(base, **flags)
+        pred = Predictor(cfg, device="cuda")
+        batch = pred.to_device(arrays)
+        with torch.inference_mode():
+            pred.forward(batch)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            resident = torch.cuda.memory_allocated()
+            fwd_ms = time_ms(lambda: pred.forward(batch), iters=10, warmup=2)
+            peak = torch.cuda.max_memory_allocated() - resident
+        before = launch_counts()
+        img_s = _img_per_s(pred.predict_batch, feed)
+        after = launch_counts()
+        if after["sigmoid_nms_topk"] <= before["sigmoid_nms_topk"]:
+            raise AssertionError(f"{name}: predict_batch did not launch kernel B")
+        with torch.inference_mode():
+            head = pred.forward(batch)
+            dec_b, dec_a = pred.decode(head, fast_path=True), pred.decode(head, fast_path=False)
+        for key in dec_b:
+            if not torch.equal(dec_b[key], dec_a[key]):
+                raise AssertionError(f"{name}: the Decoder path and kernel B differ on {key}")
+        if launch_counts()["sigmoid_nms"] <= after["sigmoid_nms"]:
+            raise AssertionError(f"{name}: the Decoder path did not launch kernel A")
+        if not torch.isfinite(head).all():
+            raise AssertionError(f"{name}: non-finite head output")
+        objects = sum(len(a.objects) for a in pred.predict_batch(feed))
+        del pred, batch, head
+        torch.cuda.empty_cache()
+        step = _time_train_steps(cfg, 32, warmup=3, iters=10)
+        torch.cuda.empty_cache()
+        small = Config(width=128, height=128, fpn_depth=32, use_amp=False,
+                       labels_path=labels, **flags).finalize()
+        gpu, cpu = Predictor(small, device="cuda"), Predictor(small, device="cpu")
+        with torch.inference_mode():
+            h_gpu = gpu.forward(gpu.to_device(small_arrays)).cpu()
+            h_cpu = cpu.forward(cpu.to_device(small_arrays))
+        card_vs_cpu = float((h_gpu - h_cpu).abs().max() / h_cpu.abs().max())
+        if card_vs_cpu > 1e-4:
+            raise AssertionError(f"{name}: card and CPU forwards differ by {card_vs_cpu:.2e}")
+        forward_ms[name] = fwd_ms
+        result[name] = {"forward_ms_batch32": fwd_ms, "forward_img_per_s": 32e3 / fwd_ms,
+                        "forward_peak_bytes_above_resident": peak,
+                        "predict_batch_img_per_s_batch32": img_s, "objects_in_batch32": objects,
+                        "train_step_batch32": step,
+                        "card_vs_cpu_fp32_128x128_max_rel": card_vs_cpu}
+
+    # resnet50 through cli.train with --pretrained, then cli.evaluate
+    _write_annotated(tmp / "train50", 32, seed=11)
+    _write_annotated(tmp / "valid50", 8, seed=12)
+    torch_home = tmp / "torch_home"
+    _torchvision_resnet50(torch_home / "hub" / "checkpoints" / "resnet50-5eed0000.pth", seed=5)
+    before = launch_counts()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with _env(TORCH_HOME=str(torch_home), SDNET_PRETRAINED=None), _cwd(tmp), \
+            contextlib.redirect_stdout(out):
+        trainer = train.main(["--train_dir", str(tmp / "train50"), "--valid_dir",
+                              str(tmp / "valid50"), "--labels", str(labels), "--backbone",
+                              "resnet50", "--pretrained", "--epochs", "1",
+                              "--eval_batch_size", "8", "--num_workers", "4"])
+        torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    if "Warm-started encoder from" not in out.getvalue():
+        raise AssertionError("cli.train --pretrained did not warm-start the encoder")
+    if launch_counts()["sigmoid_nms"] <= before["sigmoid_nms"]:
+        raise AssertionError("cli.train validation did not launch kernel A")
+    ckpt50 = tmp / trainer.save_dir / "model_best_loss.msgpack"
+    steps50 = trainer.state.step
+    del trainer
+    common = ["--valid_dir", str(tmp / "valid50"), "--labels", str(labels), "--load_model",
+              str(ckpt50), "--eval_batch_size", "8"]
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        evaluate.main(["--backbone", "resnet50", *common, "--save_summary",
+                       str(tmp / "summary50.json")])
+    evaluate_s = time.perf_counter() - t0
+    summary = json.loads((tmp / "summary50.json").read_text())
+    if not all(math.isfinite(v) for v in summary.values()):
+        raise AssertionError(f"cli.evaluate --backbone resnet50: {summary}")
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            evaluate.main(common)
+        raise AssertionError("a resnet50 checkpoint loaded into a resnet34 model")
+    except ValueError as e:
+        if "block kind" not in str(e):
+            raise
+    launches = launch_counts()
+    # --- end of the main path
+
+    # a 7x7 checkpoint in an s2d model: the stem rewritten exactly
+    heads = {}
+    for dtype_name, use_amp in (("bf16", True), ("fp32", False)):
+        cfg = dataclasses.replace(base, use_amp=use_amp)
+        std = Predictor(cfg, device="cuda")
+        path = save_msgpack(std.model, tmp / "std.msgpack")
+        s2d = Predictor(dataclasses.replace(cfg, s2d_stem=True, pretrained_model=path),
+                        device="cuda")
+        batch = std.to_device(arrays[:8])
+        heads[dtype_name] = (std.forward(batch), s2d.forward(batch))
+        if dtype_name == "fp32":
+            dec = [p.decode(h, fast_path=True) for p, h in zip((std, s2d), heads["fp32"])]
+        del std, s2d
+    s2d_rel = {k: float((b - a).abs().max() / a.abs().max()) for k, (a, b) in heads.items()}
+    for key in ("part_parent", "part_valid"):
+        if not torch.equal(dec[0][key], dec[1][key]):
+            raise AssertionError(f"s2d from a 7x7 checkpoint: fp32 detections differ on {key}")
+    for key in ("anchors", "parts"):
+        torch.testing.assert_close(dec[1][key], dec[0][key], rtol=0, atol=1e-3)
+    # the bf16 bar of the serve phase; fp32 the card-against-CPU bar
+    if s2d_rel["bf16"] > 0.08 or s2d_rel["fp32"] > 1e-4:
+        raise AssertionError(f"s2d from a 7x7 checkpoint departs from the 7x7 model: {s2d_rel}")
+
+    # resnet50 int8 with static scales against bf16, same weights
+    cfg50 = dataclasses.replace(base, backbone="resnet50")
+    bf16 = Predictor(cfg50, device="cuda")
+    int8 = Predictor(dataclasses.replace(cfg50, int8=True), device="cuda")
+    int8.model.load_state_dict(bf16.model.state_dict())
+    if len(int8_convs(int8.model)) != 59:
+        raise AssertionError("the int8 resnet50 must have 59 int8 convs")
+    shapes = _int8_products_exact(int8, int8.to_device(arrays[:1]))
+    cal = torch.from_numpy(np.stack(arrays[:16])).cuda()
+    cal = normalize_images(cal.float() / 255.0).permute(0, 3, 1, 2).contiguous()
+    calibrate_activation_scales(int8.model, [cal])
+    prequantize_variables(int8.model)
+    batch = int8.to_device(arrays)
+    with torch.inference_mode():
+        int8_fwd = _in_turns({"bf16": lambda: bf16.forward(batch),
+                              "int8": lambda: int8.forward(batch)},
+                             lambda fn: time_ms(fn, iters=10, warmup=2))
+        gap = _head_gap(int8.forward(batch), bf16.forward(batch))
+    del bf16, int8, batch
+    torch.cuda.empty_cache()
+
+    # a --head_conv 64 artifact: ExportPredictor gives Predictor's annotations
+    cfg_h = dataclasses.replace(base, head_conv=64)
+    path = save_msgpack(Predictor(cfg_h, device="cuda").model, tmp / "head64.msgpack")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        artifact = convert_export.main([str(path), "-o", str(tmp / "head64.sdz"), "--params",
+                                        str(labels), "--head_conv", "64", "--uint8_input",
+                                        "--dynamic_batch"])
+    convert_s = time.perf_counter() - t0
+    pictures = [Image.fromarray(a) for a in arrays[:16]]
+    live = Predictor(dataclasses.replace(cfg_h, pretrained_model=path), device="cuda")
+    want = [a.json_repr() for a in live.predict_batch(pictures)]
+    got = [a.json_repr() for a in ExportPredictor(artifact).predict_batch(pictures)]
+    if got != want:
+        raise AssertionError("ExportPredictor on the --head_conv 64 artifact and Predictor "
+                             "disagree")
+
+    emit({"phase": "variants", "card": card,
+          "model": f"SDNet fpn_depth={base.fpn_depth} {base.width}x{base.height} bf16, labels "
+                   f"{list(base.labels)} / {list(base.parts)}, seeded init",
+          "timing": "forward: CUDA events, mean of 10 after 2 warm-up, uint8 feed on the card; "
+                    "train step: CUDA events over 10 steps after 3, device augment; img/s: "
+                    "host clock, 10 rounds of predict_batch on 32 PreparedImages",
+          "variants": result,
+          "cli_train_resnet50_pretrained": {"train_images": 32, "valid_images": 8, "epochs": 1,
+                                            "steps": steps50, "wall_s": train_s,
+                                            "evaluate_wall_s": evaluate_s,
+                                            "evaluate_summary": {k: summary[k] for k in (
+                                                "anchor/f1_total", "kps/f1_total")}},
+          "s2d_from_7x7_checkpoint_head_max_rel": s2d_rel,
+          "resnet50_int8_static": {"forward_ms_batch32": int8_fwd, "head_gap_vs_bf16": gap,
+                                   "int8_product_exact_shapes": len(shapes)},
+          "head_conv64_artifact": {"convert_export_s": convert_s, "images": len(pictures),
+                                   "annotations_equal": True,
+                                   "objects": sum(len(a["objects"]) for a in want)},
+          "launches": launches, "seconds": time.perf_counter() - t_phase})
+    if gap > 0.25:  # JAX tests/test_int8.py:84's bar
+        raise AssertionError(f"int8 resnet50 head departs from bf16 by {gap:.3f}")
+    return launches, forward_ms
+
+
+# a benchmark subprocess: the CLI's JSON line, then its process's launch counts
+_BENCH = ("import json, sys\n"
+          "from structuredetector_tpu_torch.cli import benchmark\n"
+          "from structuredetector_tpu_torch.ops.kernels import launch_counts\n"
+          "benchmark.main(sys.argv[1:])\n"
+          "print(json.dumps({'launches': launch_counts()}), flush=True)\n")
+
+
+def phase_benchmark(card: str, forward_ms: dict) -> dict:
+    """`cli.benchmark --json` in a process of its own for resnet34 bf16,
+    resnet50 bf16 and resnet34 `--int8_static`: its keys, finite values,
+    kernel A launched (the process's own counts), and its `forward_fps`
+    within 10 % of the batch-32 forward this run measured in the serve,
+    variants and int8 phases (`forward_ms`, by run name). Returns the
+    launch counts summed over the processes."""
+    import subprocess
+
+    runs = {"resnet34 bf16": [], "resnet50 bf16": ["--backbone", "resnet50"],
+            "resnet34 int8_static": ["--int8_static"]}
+    keys = {"forward_fps", "e2e_plain_fps", "e2e_kernel_fps", "e2e_latency_batch1_ms",
+            "decode_plain_us_per_img", "decode_kernel_us_per_img", "train_step_imgs_per_s"}
+    out, total = {}, {}
+    for name, flags in runs.items():
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", _BENCH, "--json", *flags], cwd=ROOT,
+                              capture_output=True, text=True, timeout=300)
+        if proc.returncode:
+            raise AssertionError(f"cli.benchmark {name}: exit {proc.returncode}\n"
+                                 f"{proc.stderr[-2000:]}")
+        lines = proc.stdout.strip().splitlines()
+        result, launches = json.loads(lines[-2]), json.loads(lines[-1])["launches"]
+        want = keys - ({"train_step_imgs_per_s"} if "--int8_static" in flags else set())
+        if set(result) != want or not all(math.isfinite(v) and v > 0 for v in result.values()):
+            raise AssertionError(f"cli.benchmark {name}: {result}")
+        if not launches["sigmoid_nms"]:
+            raise AssertionError(f"cli.benchmark {name} did not launch kernel A: {launches}")
+        ms = 32e3 / result["forward_fps"]
+        rel = ms / forward_ms[name] - 1.0
+        out[name] = {"result": result, "launches": launches, "wall_s": time.perf_counter() - t0,
+                     "forward_ms": ms, "in_call_forward_ms": forward_ms[name],
+                     "forward_rel_diff": rel}
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        emit({"phase": "benchmark", "run": name, "flags": flags, **out[name]})
+    emit({"phase": "benchmark", "card": card, "runs": list(runs),
+          "compared_with": "forward_ms_batch32 of the serve phase (resnet34 bf16), the variants "
+                           "phase (resnet50 bf16) and the int8 phase (int8 static, "
+                           "prequantized)", "launches": total})
+    bad = {k: v["forward_rel_diff"] for k, v in out.items() if abs(v["forward_rel_diff"]) > 0.10}
+    if bad:
+        raise AssertionError(f"cli.benchmark's forward departs from the in-call forward: {bad}")
+    return total
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--load_model", type=Path, default=None,
@@ -1612,16 +1965,23 @@ def main(argv=None) -> int:
     kernels = phase_kernels(card)
     if args.parent is not None:
         phase_parent(card, args.parent.resolve())
-    by_path = {"serve": phase_serve(card, args.load_model),
-               "topk_variants": phase_topk_variants(card)}
+    forward_ms = {}
+    by_path = {}
+    by_path["serve"], forward_ms["resnet34 bf16"] = phase_serve(card, args.load_model)
+    by_path["topk_variants"] = phase_topk_variants(card)
     with tempfile.TemporaryDirectory(prefix="sdnet-smoke-") as work:
         work = Path(work)
         by_path["evaluate_detect"], ckpt, gt_dir = phase_evaluate_detect(
             card, args.load_model, work)
         by_path["export"] = phase_export(card, work, ckpt, gt_dir)
-        by_path["int8"] = phase_int8(card, work, ckpt, gt_dir)
+        by_path["int8"], forward_ms["resnet34 int8_static"] = phase_int8(card, work, ckpt,
+                                                                         gt_dir)
     phase_reference(card)
     by_path["train"] = phase_train(card)
+    with tempfile.TemporaryDirectory(prefix="sdnet-variants-") as work:
+        by_path["variants"], variant_ms = phase_variants(card, Path(work))
+    forward_ms["resnet50 bf16"] = variant_ms["resnet50"]
+    by_path["benchmark"] = phase_benchmark(card, forward_ms)
 
     sources = {
         "sigmoid_nms": ("structuredetector_tpu_torch/csrc/sigmoid_nms.cu",

@@ -30,8 +30,8 @@ def parse_args(argv=None):
     p.add_argument("--scale-factor", "-s", type=int, default=4)
     p.add_argument("--fpn-depth", type=int, default=128)
     p.add_argument("--head_conv", type=int, default=0,
-                   help="Hidden head width the checkpoint was trained with: 0 (the "
-                        "single 1x1 head) only in the port.")
+                   help="Hidden head width the checkpoint was trained "
+                        "with (must match; 0 = single-1x1 head).")
     p.add_argument("--anchor_name", type=str, default="anchor")
     p.add_argument("--batch_size", "-b", type=int, default=1,
                    help="Static batch size baked into the artifact.")

@@ -3,10 +3,10 @@
 The port's own copy of `structuredetector_tpu/config.py`: the
 reference's flag names, defaults and invariants
 (`/root/reference/src/sdnet/utils/args.py`), so a reference command
-line works unchanged, plus the JAX package's training flags. What the
-port does not do yet is accepted only at its default and raises a
-named error otherwise (`--data_parallel`, `--model_parallel`,
-`--backbone`, `--s2d_stem`, `--head_conv`);
+line works unchanged, plus the JAX package's training flags and model
+variants (`--backbone`, `--s2d_stem`, `--head_conv`). What the port
+does not do yet is accepted only at its default and raises a named
+error otherwise (`--data_parallel`, `--model_parallel`);
 `--native_io`/`--no_native_io`/`--native_io_fast` and `--compile_cache`
 are accepted and ignored (the port decodes images with PIL and compiles
 nothing ahead). The device is a `--device` flag of each CLI.
@@ -24,6 +24,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from .annotations import get_unique_color_map
+from .models.resnet import ARCHS
 
 DEFAULT_SEED = 926354916  # reference args.py:257
 
@@ -91,19 +92,22 @@ class Config:
     device_augment: bool = True  # jitter and flips on the card (--host_augment: PIL)
     uint8_feed: bool = True  # device augment: ship uint8, /255 on the card
     flip_prob: float = 0.5  # train-time h and v flip probability
-    pretrained_backbone: bool = False  # --pretrained: cached torchvision resnet34
+    pretrained_backbone: bool = False  # --pretrained: cached torchvision <backbone>
     debug_nans: bool = False  # autograd anomaly detection
     resume_dir: Optional[Path] = None  # trainings/<ts> directory to resume
 
     # inference-only int8 convs (models.quantize)
     int8: bool = False
 
-    # accepted only at these defaults until the port has them
-    data_parallel: int = 0
-    model_parallel: int = 1
+    # model variants (models.resnet.ARCHS, the space-to-depth stem, the
+    # hidden head width; 0 = the reference's single 1x1 head)
     backbone: str = "resnet34"
     s2d_stem: bool = False
     head_conv: int = 0
+
+    # accepted only at these defaults until the port has them
+    data_parallel: int = 0
+    model_parallel: int = 1
 
     seed: int = DEFAULT_SEED
     num_workers: int = -1  # -1 = auto, min(cpu_count, 4) like the reference
@@ -205,15 +209,14 @@ class Config:
              "the port runs on one device (multi-GPU is not ported yet)"),
             (self.model_parallel == 1, f"--model_parallel {self.model_parallel}: "
              "the port runs on one device (multi-GPU is not ported yet)"),
-            (self.backbone == "resnet34", f"--backbone {self.backbone}: "
-             "the port has the resnet34 encoder only"),
-            (not self.s2d_stem, "--s2d_stem: the port has the 7x7 stem only"),
-            (self.head_conv == 0, f"--head_conv {self.head_conv}: "
-             "the port has the single 1x1 head only"),
         ]
         for ok, message in not_ported:
             if not ok:
                 raise ValueError(message)
+        if self.backbone not in ARCHS:
+            raise ValueError(
+                f"unknown backbone {self.backbone!r}: pick one of {sorted(ARCHS)}"
+            )
         if self.num_workers < 0:  # auto: reference num_workers policy (args.py:251)
             self.num_workers = min(os.cpu_count() or 1, 4)
         return self
@@ -329,9 +332,10 @@ def build_parser(parser: Optional[argparse.ArgumentParser] = None) -> argparse.A
     p.add_argument("--no_amp", action="store_true",
                    help="Force fp32 compute (TF32 off).")
     p.add_argument("--pretrained", action="store_true", dest="pretrained_backbone",
-                   help="Warm-start the ResNet34 encoder from a locally cached "
-                        "torchvision ImageNet checkpoint ($SDNET_PRETRAINED, then "
-                        "$TORCH_HOME/hub/checkpoints); nothing is downloaded.")
+                   help="Warm-start the encoder from a locally cached torchvision "
+                        "ImageNet checkpoint of --backbone ($SDNET_PRETRAINED, then "
+                        "$TORCH_HOME/hub/checkpoints/<backbone>-*.pth); nothing is "
+                        "downloaded.")
     p.add_argument("--data_parallel", type=int, default=d.data_parallel,
                    help="Devices on the data axis: 0 or 1 (one device) only.")
     p.add_argument("--model_parallel", type=int, default=d.model_parallel,
@@ -371,14 +375,19 @@ def build_parser(parser: Optional[argparse.ArgumentParser] = None) -> argparse.A
                    help="Ship the training batch as float32 [0, 1] instead of raw "
                         "uint8 (device augment only).")
     p.add_argument("--backbone", type=str, default=d.backbone,
-                   help="Encoder family: resnet34 only in the port.")
+                   choices=["resnet18", "resnet34", "resnet50"],
+                   help="Encoder family (reference ships resnet34).")
     p.add_argument("--s2d_stem", action="store_true",
-                   help="Not in the port: raises.")
+                   help="Space-to-depth stem: equivalent 4x4/1 conv on 12 "
+                        "channels instead of 7x7/2 on 3 (changes the checkpoint "
+                        "stem layout; a 7x7 checkpoint loads into it).")
     p.add_argument("--flip_prob", type=float, default=d.flip_prob,
                    help="Train-time h/v flip probability (0 disables).")
     p.add_argument("--head_conv", type=int, default=d.head_conv,
-                   help="Hidden head width: 0 (the reference's 1x1 head) only "
-                        "in the port.")
+                   help="Hidden 3x3 head width before the 1x1 output conv "
+                        "(0 = reference single-1x1 head). Changes the "
+                        "checkpoint layout; pass the same value when "
+                        "evaluating/exporting the checkpoint.")
     p.add_argument("--int8", action="store_true",
                    help="Inference-only int8 convs (per-sample dynamic activation "
                         "and per-channel weight quantization); stem and head stay "

@@ -1,13 +1,17 @@
-"""SDNet: ResNet34 encoder + FPN decoder + 1x1 head, NCHW.
+"""SDNet: ResNet encoder + FPN decoder + head, NCHW.
 
 The port of `structuredetector_tpu/models/network.py`; the structure and
 the module names are the reference `Network`'s
 (`/root/reference/src/sdnet/model/network.py:32-87`):
 
-- `adpater` + `down1..down4`: the resnet34 encoder (stages C2..C5),
-- `up1`: 1x1 conv 512 -> fpn_depth on C5,
+- `adpater` + `down1..down4`: the encoder (stages C2..C5), resnet34 as
+  in the reference, or resnet18 / resnet50 (`backbone`), with the 7x7
+  or the space-to-depth stem (`s2d_stem`),
+- `up1`: 1x1 conv C5 -> fpn_depth (512 channels, 2048 for resnet50),
 - `up2..up4`: FPN blocks: nearest x2 upsample + 1x1 lateral conv on the
   skip + sum + 3x3 conv(bias=False) + BN + ReLU,
+- `head_hidden` (only with `head_conv` > 0): a 3x3 conv with bias and a
+  ReLU, the CenterNet head of JAX `network.py:176-180`,
 - `head.conv`: 1x1 conv to M+N+4 channels at output stride 4.
 
 The head output (B, M+N+4, H/4, W/4) is already in the (B * C, H, W)
@@ -22,7 +26,8 @@ variance (`resnet.BatchNorm2d`).
 
 With `int8`, every residual-block and FPN conv is an `Int8Conv2d`
 (`models.quantize`): int8 activations and weights, int32 sums, the
-output in the compute dtype; the stem and the head stay float. Int8 is
+output in the compute dtype; the stem (either form) and the head
+(`head_hidden` too) stay float. Int8 is
 inference-only: a train-mode forward raises.
 """
 
@@ -33,10 +38,11 @@ from typing import Optional
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from ..ops.decode import split_head_output
 from .quantize import swap_int8_convs
-from .resnet import STAGE_SIZES, STAGE_WIDTHS, BatchNorm2d, stage, stem
+from .resnet import ARCHS, STAGE_WIDTHS, BatchNorm2d, stage, stage_channels, stem
 
 
 def upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:
@@ -103,22 +109,29 @@ class SDNet(nn.Module):
 
     def __init__(self, n_labels: int, n_parts: int, fpn_depth: int = 128,
                  in_channels: int = 3, dtype: torch.dtype = torch.float32,
-                 int8: bool = False):
+                 int8: bool = False, backbone: str = "resnet34", s2d_stem: bool = False,
+                 head_conv: int = 0):
         super().__init__()
         self.n_labels = n_labels
         self.n_parts = n_parts
         self.dtype = dtype
         self.int8 = int8
-        self.adpater = stem(in_channels)
+        self.backbone = backbone
+        self.adpater = stem(in_channels, s2d=s2d_stem)
+        block, stage_sizes = ARCHS[backbone]
         in_ch = 64
-        for i, (n_blocks, width) in enumerate(zip(STAGE_SIZES, STAGE_WIDTHS), start=1):
-            setattr(self, f"down{i}", stage(in_ch, width, n_blocks, 1 if i == 1 else 2))
-            in_ch = width
-        self.up1 = nn.Conv2d(STAGE_WIDTHS[3], fpn_depth, 1)
-        self.up2 = FpnBlock(STAGE_WIDTHS[2], fpn_depth)
-        self.up3 = FpnBlock(STAGE_WIDTHS[1], fpn_depth)
-        self.up4 = FpnBlock(STAGE_WIDTHS[0], fpn_depth)
-        self.head = Head(fpn_depth, n_labels + n_parts + 4)
+        for i, (n_blocks, width) in enumerate(zip(stage_sizes, STAGE_WIDTHS), start=1):
+            setattr(self, f"down{i}", stage(block, in_ch, width, n_blocks, 1 if i == 1 else 2))
+            in_ch = width * block.expansion
+        # the FPN reads C2..C5 at the block's widths (resnet50: 256..2048)
+        c2, c3, c4, c5 = stage_channels(backbone)
+        self.up1 = nn.Conv2d(c5, fpn_depth, 1)
+        self.up2 = FpnBlock(c4, fpn_depth)
+        self.up3 = FpnBlock(c3, fpn_depth)
+        self.up4 = FpnBlock(c2, fpn_depth)
+        self.head_hidden = (nn.Conv2d(fpn_depth, head_conv, 3, padding=1) if head_conv > 0
+                            else None)
+        self.head = Head(head_conv or fpn_depth, n_labels + n_parts + 4)
         if int8:
             swap_int8_convs(self, dtype)
 
@@ -138,6 +151,8 @@ class SDNet(nn.Module):
             c4 = self.down3(c3)
             c5 = self.down4(c4)
             f = self.up4(self.up3(self.up2(self.up1(c5), c4), c3), c2)
+            if self.head_hidden is not None:
+                f = F.relu(self.head_hidden(f))
             out = self.head(f).float()
         if raw_output:
             return out
@@ -152,6 +167,9 @@ def build_model(config, dtype: Optional[torch.dtype] = None) -> SDNet:
         in_channels=config.in_channels,
         dtype=dtype if dtype is not None else config.compute_dtype,
         int8=config.int8,
+        backbone=config.backbone,
+        s2d_stem=config.s2d_stem,
+        head_conv=config.head_conv,
     )
 
 

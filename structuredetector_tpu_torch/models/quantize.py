@@ -178,9 +178,12 @@ class Int8Conv2d(nn.Conv2d):
 
 def _int8_eligible(name: str) -> bool:
     """Whether the SDNet conv at module path `name` runs int8: every
-    residual-block and FPN conv; the stem (`adpater.0`) and the head
-    (`head.conv`) stay float (JAX `quantize.py:146-155`)."""
-    return name != "adpater.0" and not name.startswith("head")
+    residual-block conv (Bottleneck `conv3` and downsamples included) and
+    every FPN conv. The stem (`adpater`, in either form, whatever the
+    conv's path inside it), the hidden head (`head_hidden`) and the head
+    (`head.conv`) stay float: JAX builds them as `nn.Conv`
+    (`resnet.py:186-195`, `network.py:176-180,201-203`)."""
+    return name.partition(".")[0] not in ("adpater", "head_hidden", "head")
 
 
 def swap_int8_convs(model: nn.Module, out_dtype: torch.dtype) -> nn.Module:

@@ -9,14 +9,20 @@ a `.pth` written by the reference, or by the JAX package's
 the JAX package's `save_params` (the trainer's `model_best_*.msgpack`)
 is read without flax (`models.msgpack`) and mapped by
 `state_dict_from_jax`. A checkpoint of another architecture (other
-`fpn_depth`, labels, input channels, backbone or head) raises a
-`ValueError` that names the difference instead of loading partly.
+`fpn_depth`, labels, input channels, backbone, stem or head) raises a
+`ValueError` that names the difference instead of loading partly; the
+one adaptation is JAX `_adapt_stem`'s: a 7x7 stem kernel loads into a
+space-to-depth stem through the exact `stem_kernel_to_s2d` rewrite
+(`adapt_stem`).
 
-`state_dict_from_jax` is the port's own copy of the mapping in
-`structuredetector_tpu/models/torch_export.py`: a
-`{'params', 'batch_stats'}` tree of numpy arrays (HWIO kernels) becomes
-a state_dict (OIHW kernels); `jax_tree_from_state_dict` is its inverse,
-so the port writes checkpoints the JAX package loads (`save_msgpack`).
+`state_dict_from_jax` maps every variant of the JAX package's SDNet
+(resnet18/34/50 blocks, the 4x4 stem kernel, `head_hidden`) as the
+mapping in `structuredetector_tpu/models/torch_export.py` maps resnet34:
+a `{'params', 'batch_stats'}` tree of numpy arrays (HWIO kernels)
+becomes a state_dict (OIHW kernels); `jax_tree_from_state_dict` is its
+inverse, so the port writes checkpoints the JAX package loads
+(`save_msgpack`). A torchvision resnet18, resnet34 or resnet50 ImageNet
+state_dict warm-starts the encoder (`load_imagenet_encoder`).
 Int8 state crosses too: a tree from JAX `prequantize_variables` (int8
 HWIO kernels with `kernel_scale`) and from
 `calibrate_activation_scales` (`act_scale`) maps onto the port's int8
@@ -34,7 +40,9 @@ import numpy as np
 import torch
 
 from . import msgpack
-from .resnet import STAGE_SIZES
+from .resnet import stem_kernel_to_s2d
+
+STEM = "adpater.0.weight"
 
 
 def _conv_oihw(kernel) -> torch.Tensor:
@@ -67,27 +75,24 @@ def _put_bn(out: Dict[str, torch.Tensor], prefix: str,
 
 def state_dict_from_jax(tree: Mapping[str, Any]) -> "OrderedDict[str, torch.Tensor]":
     """JAX `{'params', 'batch_stats'}` tree (numpy leaves) -> the port's
-    state_dict. Only the reference architecture maps: resnet34 encoder,
-    1x1 head."""
+    state_dict, for any backbone, stem and head of the JAX package: the
+    blocks of each stage are the tree's `layer{s}_{b}`, with their
+    `conv3`/`bn3` (Bottleneck) and downsample where the tree has them."""
     params, stats = tree["params"], tree["batch_stats"]
     enc_p, enc_s = params["encoder"], stats["encoder"]
-    if "head_hidden" in params or "kernel" not in params["head"]:
-        raise ValueError("only the reference's single 1x1 head maps to the port's SDNet")
-    n_blocks = sum(1 for k in enc_p if k.startswith("layer1_"))
-    if n_blocks != STAGE_SIZES[0] or "downsample_conv" in enc_p.get("layer1_0", {}):
-        raise ValueError("only the resnet34 encoder maps to the port's SDNet")
 
     out: "OrderedDict[str, torch.Tensor]" = OrderedDict()
     _put_conv(out, "adpater.0", enc_p["conv1"])
     _put_bn(out, "adpater.1", enc_p["bn1"], enc_s["bn1"])
-    for stage_i, n in enumerate(STAGE_SIZES):
-        for block in range(n):
-            src, dst = f"layer{stage_i + 1}_{block}", f"down{stage_i + 1}.{block}"
+    for stage_i in range(1, 5):
+        n_blocks = sum(1 for k in enc_p if k.startswith(f"layer{stage_i}_"))
+        for block in range(n_blocks):
+            src, dst = f"layer{stage_i}_{block}", f"down{stage_i}.{block}"
             p, s = enc_p[src], enc_s[src]
-            _put_conv(out, f"{dst}.conv1", p["conv1"])
-            _put_bn(out, f"{dst}.bn1", p["bn1"], s["bn1"])
-            _put_conv(out, f"{dst}.conv2", p["conv2"])
-            _put_bn(out, f"{dst}.bn2", p["bn2"], s["bn2"])
+            for i in (1, 2, 3):
+                if f"conv{i}" in p:
+                    _put_conv(out, f"{dst}.conv{i}", p[f"conv{i}"])
+                    _put_bn(out, f"{dst}.bn{i}", p[f"bn{i}"], s[f"bn{i}"])
             if "downsample_conv" in p:
                 _put_conv(out, f"{dst}.downsample.0", p["downsample_conv"])
                 _put_bn(out, f"{dst}.downsample.1", p["downsample_bn"], s["downsample_bn"])
@@ -98,6 +103,8 @@ def state_dict_from_jax(tree: Mapping[str, Any]) -> "OrderedDict[str, torch.Tens
         _put_conv(out, f"up{k}.lateral", blk_p["lateral"])
         _put_conv(out, f"up{k}.conv.0", blk_p["conv"])
         _put_bn(out, f"up{k}.conv.1", blk_p["bn"], blk_s["bn"])
+    if "head_hidden" in params:
+        _put_conv(out, "head_hidden", params["head_hidden"])
     _put_conv(out, "head.conv", params["head"])
     return out
 
@@ -131,12 +138,14 @@ def jax_tree_from_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     enc_p: Dict[str, Any] = {"conv1": conv("adpater.0")}
     enc_s: Dict[str, Any] = {}
     enc_p["bn1"], enc_s["bn1"] = bn("adpater.1")
-    for stage_i, n in enumerate(STAGE_SIZES):
-        for block in range(n):
-            src, dst = f"down{stage_i + 1}.{block}", f"layer{stage_i + 1}_{block}"
-            p, s = {"conv1": conv(f"{src}.conv1"), "conv2": conv(f"{src}.conv2")}, {}
-            p["bn1"], s["bn1"] = bn(f"{src}.bn1")
-            p["bn2"], s["bn2"] = bn(f"{src}.bn2")
+    for stage_i in range(1, 5):
+        for block in _blocks(sd, stage_i):
+            src, dst = f"down{stage_i}.{block}", f"layer{stage_i}_{block}"
+            p, s = {}, {}
+            for i in (1, 2, 3):
+                if f"{src}.conv{i}.weight" in sd:
+                    p[f"conv{i}"] = conv(f"{src}.conv{i}")
+                    p[f"bn{i}"], s[f"bn{i}"] = bn(f"{src}.bn{i}")
             if f"{src}.downsample.0.weight" in sd:
                 p["downsample_conv"] = conv(f"{src}.downsample.0")
                 p["downsample_bn"], s["downsample_bn"] = bn(f"{src}.downsample.1")
@@ -150,8 +159,15 @@ def jax_tree_from_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
                  "conv": conv(f"up{k}.conv.0")}
         blk_p["bn"], blk_s = bn(f"up{k}.conv.1")
         params[f"up{k}"], stats[f"up{k}"] = blk_p, {"bn": blk_s}
+    if "head_hidden.weight" in sd:
+        params["head_hidden"] = {**conv("head_hidden"), "bias": _np(sd["head_hidden.bias"])}
     params["head"] = {**conv("head.conv"), "bias": _np(sd["head.conv.bias"])}
     return {"params": params, "batch_stats": stats}
+
+
+def _blocks(sd: Mapping[str, Any], stage_i: int) -> list:
+    """The block indices of stage `stage_i` (`down{stage_i}.{b}`) in `sd`."""
+    return sorted({int(k.split(".")[1]) for k in sd if k.startswith(f"down{stage_i}.")})
 
 
 def _architecture(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
@@ -159,14 +175,18 @@ def _architecture(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     def dim(key, axis):
         return int(sd[key].shape[axis]) if key in sd else None
 
-    blocks = tuple(
-        len({k.split(".")[1] for k in sd if k.startswith(f"down{i}.")}) for i in (1, 2, 3, 4))
+    stem = tuple(sd[STEM].shape[2:]) if STEM in sd else None
     return {
         "fpn_depth": dim("up1.weight", 0),
         "head outputs (labels + parts + 4)": dim("head.conv.weight", 0),
-        "input channels": dim("adpater.0.weight", 1),
-        "backbone blocks per stage (resnet34: 3, 4, 6, 3)": blocks,
-        "backbone block kind": "bottleneck" if any(".conv3." in k for k in sd) else "basic",
+        "input channels": None if stem is None
+        else dim(STEM, 1) // (4 if stem == (4, 4) else 1),
+        "stem kernel (7x7; 4x4 with --s2d_stem)": stem,
+        "backbone blocks per stage (resnet18: 2, 2, 2, 2; resnet34, resnet50: 3, 4, 6, 3)":
+        tuple(len(_blocks(sd, i)) for i in (1, 2, 3, 4)),
+        "backbone block kind (resnet50: bottleneck)":
+        "bottleneck" if any(".conv3." in k for k in sd) else "basic",
+        "hidden head width (--head_conv)": dim("head_hidden.weight", 0) or 0,
         "head kernel": tuple(sd["head.conv.weight"].shape[2:]) if "head.conv.weight" in sd
         else "another head",
     }
@@ -201,12 +221,34 @@ def load_checkpoint(path) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def adapt_stem(sd: Mapping[str, torch.Tensor], model_sd: Mapping[str, torch.Tensor]):
+    """`sd` with its stem kernel in the layout of the model whose
+    state_dict is `model_sd` (JAX `network.py::_adapt_stem`): a 7x7
+    kernel becomes the 4x4 kernel of a space-to-depth stem through
+    `stem_kernel_to_s2d`; a 4x4 kernel for a 7x7 stem raises, since a
+    trained s2d stem has no 7x7 form. Other shapes are left to
+    `check_architecture` to name."""
+    have, want = sd.get(STEM), model_sd.get(STEM)
+    if have is None or want is None or have.shape == want.shape:
+        return sd
+    have_k, want_k = tuple(have.shape[2:]), tuple(want.shape[2:])
+    if have_k == (7, 7) and want_k == (4, 4):
+        return {**sd, STEM: _conv_oihw(stem_kernel_to_s2d(_hwio(have)))}
+    if have_k == (4, 4) and want_k == (7, 7):
+        raise ValueError(
+            "This checkpoint was trained with --s2d_stem (4x4 stem kernel); "
+            "pass --s2d_stem to load it. A trained s2d stem cannot be "
+            "folded back into a 7x7/stride-2 conv."
+        )
+    return sd
+
+
 def load_weights(model: torch.nn.Module, path) -> torch.nn.Module:
-    """Load a `.pth` or `.msgpack` into `model` strictly: another
-    architecture raises a ValueError that names the difference; a
-    missing, extra or differently shaped tensor beyond that raises
-    too."""
-    sd = load_checkpoint(path)
+    """Load a `.pth` or `.msgpack` into `model` strictly, its stem kernel
+    adapted (`adapt_stem`): another architecture raises a ValueError that
+    names the difference; a missing, extra or differently shaped tensor
+    beyond that raises too."""
+    sd = adapt_stem(load_checkpoint(path), model.state_dict())
     check_architecture(model, sd, source=str(path))
     model.load_state_dict(sd, strict=True)
     return model
@@ -225,11 +267,12 @@ def save_msgpack(weights, path) -> Path:
     return path
 
 
-def find_imagenet_resnet34() -> Path:
-    """A torchvision ImageNet resnet34 checkpoint already on disk (the
+def find_imagenet_resnet34(backbone: str = "resnet34") -> Path:
+    """A torchvision ImageNet checkpoint of `backbone` already on disk (the
     reference's `pretrained=True`, network.py:41; nothing is downloaded):
-    `$SDNET_PRETRAINED` if set, else the first `resnet34-*.pth` under
-    `$TORCH_HOME/hub/checkpoints` (default `~/.cache/torch`). Raises
+    `$SDNET_PRETRAINED` if set, else the first `<backbone>-*.pth` under
+    `$TORCH_HOME/hub/checkpoints` (default `~/.cache/torch`), as JAX
+    `torch_bridge.py::find_imagenet_resnet34` looks. Raises
     FileNotFoundError naming the place it looked."""
     explicit = os.environ.get("SDNET_PRETRAINED")
     if explicit:
@@ -239,21 +282,40 @@ def find_imagenet_resnet34() -> Path:
         raise FileNotFoundError(f"$SDNET_PRETRAINED points at '{p}', which does not exist")
     torch_home = Path(os.environ.get("TORCH_HOME", Path.home() / ".cache" / "torch"))
     where = torch_home / "hub" / "checkpoints"
-    hits = sorted(where.glob("resnet34-*.pth"))
+    hits = sorted(where.glob(f"{backbone}-*.pth"))
     if hits:
         return hits[0]
     raise FileNotFoundError(
-        f"--pretrained: no ImageNet resnet34 checkpoint (resnet34-*.pth) in {where}; "
-        "place torchvision's resnet34 weights there, or set $SDNET_PRETRAINED "
+        f"--pretrained: no ImageNet {backbone} checkpoint ({backbone}-*.pth) in {where}; "
+        f"place torchvision's {backbone} weights there, or set $SDNET_PRETRAINED "
         "(or $TORCH_HOME), or pass a model with --load_model")
 
 
+def _torchvision_arch(sd: Mapping[str, Any]) -> str:
+    """Which torchvision resnet a state_dict is, as JAX
+    `torch_bridge.py::_detect_arch` tells: Bottleneck blocks carry a
+    `conv3`, resnet18 has no `layer1.2`."""
+    if "layer1.0.conv3.weight" in sd:
+        return "resnet50"
+    if "layer1.2.conv1.weight" in sd:
+        return "resnet34"
+    if "layer1.0.conv1.weight" in sd:
+        return "resnet18"
+    raise ValueError("not a torchvision resnet state_dict (no layer1.0.conv1)")
+
+
 def load_imagenet_encoder(model: torch.nn.Module, path) -> torch.nn.Module:
-    """Load a torchvision resnet34 state_dict into the SDNet's encoder
-    (`conv1`/`bn1` -> `adpater.{0,1}`, `layer{i}` -> `down{i}`; `fc` is
-    dropped). Every encoder tensor must be there; the FPN and the head
-    keep their values."""
+    """Load a torchvision resnet18, resnet34 or resnet50 state_dict into
+    the SDNet's encoder (`conv1`/`bn1` -> `adpater.{0,1}`, `layer{i}` ->
+    `down{i}`; `fc` is dropped; a 7x7 stem into an `--s2d_stem` model
+    through `adapt_stem`). The family must be the model's backbone and
+    every encoder tensor must be there (`num_batches_tracked` may not);
+    the FPN and the head keep their values."""
     src = torch.load(path, map_location="cpu", weights_only=True)
+    arch = _torchvision_arch(src)
+    if arch != model.backbone:
+        raise ValueError(f"{path} is a torchvision {arch}, the model's backbone is "
+                         f"{model.backbone} (--backbone)")
     sd = {}
     for key, value in src.items():
         head, _, rest = key.partition(".")
@@ -263,9 +325,15 @@ def load_imagenet_encoder(model: torch.nn.Module, path) -> torch.nn.Module:
             sd[f"adpater.1.{rest}"] = value
         elif head.startswith("layer"):
             sd[f"down{head[5:]}.{rest}"] = value
-    encoder = {k for k in model.state_dict() if k.startswith(("adpater.", "down"))}
-    missing = sorted(encoder - set(sd))
-    if missing:
-        raise ValueError(f"{path} is not a torchvision resnet34: missing {missing[:4]}")
+    model_sd = model.state_dict()
+    sd = adapt_stem(sd, model_sd)
+    # torchvision's published checkpoints predate `num_batches_tracked`,
+    # which JAX's bridge does not read either
+    encoder = {k for k in model_sd if k.startswith(("adpater.", "down"))}
+    missing = sorted(k for k in encoder - set(sd) if not k.endswith(".num_batches_tracked"))
+    extra = sorted(set(sd) - encoder)
+    if missing or extra:
+        raise ValueError(f"{path} is not a torchvision {arch}: missing {missing[:4]}, "
+                         f"unexpected {extra[:4]}")
     model.load_state_dict(sd, strict=False)
     return model

@@ -232,11 +232,12 @@ class Trainer:
             torch.autograd.set_detect_anomaly(True)
 
         model = init_model(config)
-        # warm start (reference trainer.py:45-48)
+        # warm start (reference trainer.py:45-48); a 7x7 stem loads into an
+        # --s2d_stem model (`load_weights` and `load_imagenet_encoder` adapt it)
         if config.pretrained_model:
             load_weights(model, config.pretrained_model)
         elif config.pretrained_backbone:
-            path = find_imagenet_resnet34()
+            path = find_imagenet_resnet34(config.backbone)
             load_imagenet_encoder(model, path)
             print(f"Warm-started encoder from {path}")
         self.model = model.to(self.device)

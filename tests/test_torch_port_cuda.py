@@ -284,3 +284,65 @@ def test_export_predictor_on_card(tmp_path):
     predictor = ExportPredictor(path)
     anns = predictor.predict_batch([Image.fromarray(a) for a in images])
     assert len(anns) == 3 and predictor.device.type == "cuda"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", [dict(backbone="resnet18"), dict(backbone="resnet50"),
+                                     dict(s2d_stem=True), dict(head_conv=16)],
+                         ids=["resnet18", "resnet50", "s2d", "head_conv"])
+def test_variant_forward_on_card_matches_cpu(variant):
+    """A small fp32 model of each variant (64x64, fpn_depth 32, TF32 off)
+    on the card and on the CPU from the same seeded weights: the head
+    within 1e-4 of its scale; the bf16 forward on the card finite."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from structuredetector_tpu_torch.config import Config
+    from structuredetector_tpu_torch.models.network import init_model
+
+    cfg = Config(width=64, height=64, fpn_depth=32, use_amp=False, **variant).set_labels(
+        ["bean", "maize"], ["leaf"])
+    x = torch.from_numpy(np.random.default_rng(4).normal(0, 1, (2, 3, 64, 64))
+                         .astype(np.float32))
+    with torch.inference_mode():
+        cpu = init_model(cfg)(x, raw_output=True)
+        gpu = init_model(cfg).cuda()(x.cuda(), raw_output=True).cpu()
+        cfg.use_amp = True
+        bf16 = init_model(cfg).cuda()(x.cuda(), raw_output=True)
+    assert float((gpu - cpu).abs().max()) <= 1e-4 * float(cpu.abs().max())
+    assert bf16.dtype == torch.float32 and bool(torch.isfinite(bf16).all())
+
+
+@pytest.mark.cuda
+def test_int8_resnet50_on_card_equals_cpu():
+    """Every int8 conv of a small int8 resnet50 (bottleneck `conv3` and
+    downsamples included) gives the CPU's int32 sums on the card, fed the
+    same input (128x128: each map a multiple of 32 pixels or padded to it)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from structuredetector_tpu_torch.config import Config
+    from structuredetector_tpu_torch.models.network import init_model
+    from structuredetector_tpu_torch.models.quantize import Int8Conv2d
+
+    cfg = Config(width=128, height=128, fpn_depth=32, use_amp=False, int8=True,
+                 backbone="resnet50").set_labels(["bean", "maize"], ["leaf"])
+    model = init_model(cfg)
+    inputs = {}
+
+    def keep(name):
+        def hook(module, args):
+            inputs[name] = args[0]
+        return hook
+
+    for n, m in model.named_modules():
+        if isinstance(m, Int8Conv2d):
+            m.register_forward_pre_hook(keep(n))
+    x = torch.from_numpy(np.random.default_rng(5).normal(0, 1, (2, 3, 128, 128))
+                         .astype(np.float32))
+    with torch.inference_mode():
+        model(x)
+        assert len(inputs) == 59
+        for name, inp in inputs.items():
+            m = model.get_submodule(name)
+            want = m.accumulate(inp)[0]
+            got = m.cuda().accumulate(inp.cuda())[0].cpu()
+            assert torch.equal(got, want), name

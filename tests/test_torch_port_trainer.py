@@ -357,10 +357,7 @@ def test_pretrained_backbone_from_local_cache(tmp_path, monkeypatch, tiny_config
         load_imagenet_encoder(init_model(cfg), path)
 
 
-@pytest.mark.parametrize("flag", [["--backbone", "resnet50"], ["--s2d_stem"],
-                                  ["--backbone", "resnet18"],
-                                  ["--head_conv", "64"], ["--model_parallel", "2"],
-                                  ["--data_parallel", "4"]])
+@pytest.mark.parametrize("flag", [["--model_parallel", "2"], ["--data_parallel", "4"]])
 def test_options_the_port_lacks_raise(flag):
     with pytest.raises(ValueError, match=flag[0]):
         config_from_args(["--labels", "labels.json", *flag])
