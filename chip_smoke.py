@@ -8,7 +8,8 @@ of JAX or of the JAX package. Phases, one JSON line each:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: compiles every kernel from csrc/ (nvcc, sm_90a, one process
-   per source, in parallel);
+   per source, in parallel) and, beside them, the native I/O library
+   from native/sdnet_io.cpp (g++), with its build seconds and route;
 3. kernels: holds each kernel (A sigmoid_nms, B sigmoid_nms_topk, C
    sigmoid_nms_topk_rowmax) bit-exact against its plain PyTorch version
    at the main paths' shapes and on the tiling's edge cases (ragged
@@ -41,6 +42,21 @@ of JAX or of the JAX package. Phases, one JSON line each:
    (kernel A); anchor F1 must be at least 0.99 for every label, the
    sweep's first summary must equal a run without the sweep, and both
    kernels' launch counters must rise. Reports images/s of both;
+6b. native_io (main path of kernels A and B behind the native input
+   tier, on evaluate_detect's checkpoint and 64 PNGs): the library must
+   have built on this host (its route, "system" or "pillow", is
+   reported); native exact decode against PIL at 512x512 on the PNGs
+   and on them as JPEGs (byte-equal) and both decoders' img/s on one
+   thread and on four; the train Loader's batches a second at batch 32,
+   native against PIL, in turns; then, on the main path, `cli.evaluate`
+   with its default and with `--no_native_io`, in turns (identical
+   summaries, img/s of each), the default server against the PIL server
+   (`native_decode: true` on /healthz, identical annotations for the 32
+   PNG requests one at a time, client-side p50/p95 latency under 4
+   clients, in turns) and `cli.train`'s wall time both ways, in turns.
+   The native calls are counted, so the defaults must take the native
+   path; kernels A and B must be launched; the host CPU's model and
+   core count stand beside these host-clock numbers;
 7. export (the deployment path, on evaluate_detect's checkpoint and
    PNGs): `cli.convert_export` writes a static batch-32 artifact and a
    `--uint8_input --dynamic_batch` one on the card; `ExportPredictor` on
@@ -94,7 +110,8 @@ of JAX or of the JAX package. Phases, one JSON line each:
    phases timed in this run.
 
 Each main path is driven with the launch counts set to 0 just before it
-and read just after. Then the `{"kernels": [...]}` line, the nvidia-smi
+and read just after; the `kernels` line gives each kernel's launches by
+path (`launches_by_path`, native_io included). Then the `{"kernels": [...]}` line, the nvidia-smi
 line, and last `{"ok": true, "device": {...}}`. Any failure raises and
 exits non-zero; without CUDA, or without the package beside this file,
 it exits 2 and prints no result.
@@ -153,14 +170,31 @@ def max_abs_diff(a, b) -> float:
 
 
 # ----------------------------------------------------------------------
-def phase_build():
+def phase_build() -> dict:
+    """Compiles the kernels (nvcc, one process a source) and, beside them,
+    the native I/O library (g++). Returns the library's build: its seconds
+    or the compiler's error."""
+    from structuredetector_tpu_torch.data import native
     from structuredetector_tpu_torch.ops.kernels import _build
 
+    library: dict = {}
+
+    def build_native():
+        try:
+            library["seconds"] = native.build()
+            library["route"], library["library"] = native.route(), native.library_path().name
+        except RuntimeError as e:
+            library["error"] = str(e)
+
+    native_thread = threading.Thread(target=build_native)
+    native_thread.start()
     seconds = _build.build_all()
+    native_thread.join()
     report = {name: [ln.strip() for ln in log.splitlines() if "Used" in ln]
               for name, log in _build.build_log.items()}
     emit({"phase": "build", "seconds": seconds, "sources": list(_build.SOURCES),
-          "ptxas": report})
+          "ptxas": report, "native_io": library})
+    return library
 
 
 def _pci_bus_id() -> str:
@@ -886,6 +920,309 @@ def phase_evaluate_detect(card: str, load_model, tmp: Path):
         raise AssertionError(
             f"the sweep's first summary departs from a single run by {sweep_vs_single}")
     return launches, ckpt, tmp / out_dir
+
+
+def _host_cpu() -> dict:
+    """The host CPU beside host-clock numbers: what /proc/cpuinfo says of
+    its model, and its core counts."""
+    first = Path("/proc/cpuinfo").read_text().split("\n\n", 1)[0]
+    info = dict(line.split(":", 1) for line in first.splitlines() if ":" in line)
+    info = {k.strip(): v.strip() for k, v in info.items()}
+    return {**{k: info.get(k) for k in ("model name", "vendor_id", "cpu family", "model")},
+            "logical_cpus": os.cpu_count(), "usable_cpus": len(os.sched_getaffinity(0))}
+
+
+@contextlib.contextmanager
+def _calls_counted(module, names, counts: dict):
+    """Count the calls of `module.<name>` for each name, for the block."""
+    lock = threading.Lock()
+    real = {name: getattr(module, name) for name in names}
+
+    def counted(name):
+        def call(*args, **kwargs):
+            with lock:
+                counts[name] = counts.get(name, 0) + 1
+            return real[name](*args, **kwargs)
+        return call
+
+    for name in names:
+        setattr(module, name, counted(name))
+    try:
+        yield
+    finally:
+        for name, fn in real.items():
+            setattr(module, name, fn)
+
+
+def _jpeg_set(gt_dir: Path, out: Path) -> None:
+    """`gt_dir`'s annotated images as JPEGs (quality 90) under `out`, the
+    annotations pointing at them."""
+    from PIL import Image
+
+    out.mkdir()
+    for js in sorted(gt_dir.glob("*.json")):
+        data = json.loads(js.read_text())
+        jpg = out / (Path(data["image_path"]).stem + ".jpg")
+        with Image.open(data["image_path"]) as im:
+            im.convert("RGB").save(jpg, quality=90)
+        data["image_path"] = str(jpg)
+        (out / js.name).write_text(json.dumps(data))
+
+
+def _decode_compared(paths, w: int, h: int) -> dict:
+    """Native exact decode against PIL at the network size, uint8 feed:
+    the largest pixel difference, and img/s on one thread (one image at a
+    time) and on four (native `load_batch` against PIL on a pool of four,
+    as the Loader runs it), in turns."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    from PIL import Image
+
+    from structuredetector_tpu_torch.data import native
+
+    def pil(path):
+        with Image.open(path) as im:
+            return np.asarray(im.convert("RGB").resize((w, h), Image.BILINEAR))
+
+    def nat(path):
+        return native.load_image(path, w, h, normalize=False, dtype=np.uint8)[0]
+
+    def one_thread(fn):
+        return lambda: [fn(p) for p in paths]
+
+    def four_pil():
+        with ThreadPoolExecutor(4) as pool:
+            return list(pool.map(pil, paths))
+
+    def four_native():
+        return native.load_batch(paths, w, h, n_threads=4, normalize=False, dtype=np.uint8)
+
+    max_diff = max(int(np.abs(nat(p).astype(np.int16) - pil(p)).max()) for p in paths)
+    rates = {}
+    for name, fn in (("native_1_thread", one_thread(nat)), ("pil_1_thread", one_thread(pil)),
+                     ("pil_1_thread", one_thread(pil)), ("native_1_thread", one_thread(nat)),
+                     ("native_4_threads", four_native), ("pil_4_threads", four_pil),
+                     ("pil_4_threads", four_pil), ("native_4_threads", four_native)):
+        t0 = time.perf_counter()
+        fn()
+        rates.setdefault(name, []).append(len(paths) / (time.perf_counter() - t0))
+    return {"max_abs_pixel_diff": max_diff, "img_per_s": rates}
+
+
+def _serve_once(predictor, bodies, clients: int) -> dict:
+    """`make_server` on the predictor answers `bodies` from `clients`
+    threads; the answers, the client-side latency of each request (decode
+    included) and the batcher's counters."""
+    import statistics
+
+    from structuredetector_tpu_torch.serve import make_server
+
+    server, batcher = make_server(predictor, "127.0.0.1", 0, max_batch=32, window_ms=20.0,
+                                  submit_timeout_s=120.0)
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    answers, latency = [None] * len(bodies), [0.0] * len(bodies)
+
+    def client(c: int):
+        for i in range(c, len(bodies), clients):
+            t0 = time.perf_counter()
+            answers[i] = _post(url + "/detect", bodies[i])
+            latency[i] = (time.perf_counter() - t0) * 1e3
+
+    try:
+        with urllib.request.urlopen(url + "/healthz", timeout=30) as resp:
+            native_decode = json.loads(resp.read())["model"]["native_decode"]
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(c,)) for c in range(clients)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        wall = time.perf_counter() - t0
+        if any(t.is_alive() for t in threads) or None in answers:
+            raise AssertionError("a client did not finish")
+    finally:
+        server.shutdown()
+        server.server_close()
+        batcher.close()
+        thread.join(timeout=30)
+    cuts = statistics.quantiles(latency, n=20, method="inclusive")
+    return {"answers": answers, "native_decode": native_decode,
+            "client_p50_ms": statistics.median(latency), "client_p95_ms": cuts[18],
+            "img_per_s": len(bodies) / wall, "batches": batcher.batches_run,
+            "batcher_latency_ms": batcher.latency_stats()}
+
+
+def phase_native_io(card: str, library: dict, tmp: Path, ckpt: Path, gt_dir: Path) -> dict:
+    """The native input tier at full width on evaluate_detect's checkpoint
+    and 64 PNGs. The library must have built on this host (else this
+    raises with the compilers' messages). Decode against PIL on the PNGs
+    and on them as JPEGs (byte-equal) and both decoders' img/s; the train
+    Loader's batches at 32 and `cli.train`, native against PIL, in
+    turns; then, on the main path, `cli.evaluate` with its default and
+    with `--no_native_io`, in turns (identical summaries, img/s of each),
+    and the default server against the PIL server (`native_decode: true`
+    on /healthz, identical annotations one request at a time, client
+    latency under 4 clients in turns). The native calls are counted, so
+    the defaults are shown to take the native path. Returns the launch
+    counts of its main path."""
+    import numpy as np
+    import torch
+
+    from structuredetector_tpu_torch.cli import evaluate, train
+    from structuredetector_tpu_torch.config import Config
+    from structuredetector_tpu_torch.data import native
+    from structuredetector_tpu_torch.data.augment import TrainAugmentation
+    from structuredetector_tpu_torch.data.dataset import CropDataset
+    from structuredetector_tpu_torch.data.pipeline import Loader, choose_batch_fetch
+    from structuredetector_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from structuredetector_tpu_torch.predictor import Predictor, PreparedImage
+    from structuredetector_tpu_torch.serve import decode_request, make_request_decoder
+
+    t_phase = time.perf_counter()
+    if "error" in library or not native.available():
+        raise AssertionError(f"the native I/O library did not build on this host: "
+                             f"{library.get('error') or native.build_error()}")
+    labels = ROOT / "labels.json"
+    cfg = Config(labels_path=labels, pretrained_model=ckpt).finalize()
+    w, h = cfg.width, cfg.height
+    pngs = sorted((tmp / "images").glob("*.png"))
+    _jpeg_set(gt_dir, tmp / "jpeg")
+    jpegs = sorted((tmp / "jpeg").glob("*.jpg"))
+    decode = {"png": _decode_compared(pngs, w, h), "jpeg": _decode_compared(jpegs, w, h)}
+    if any(d["max_abs_pixel_diff"] for d in decode.values()):
+        raise AssertionError(f"native exact decode departs from PIL: {decode}")
+
+    pred = Predictor(cfg, device="cuda")
+    bodies = [p.read_bytes() for p in pngs[:32]]
+    decode_native = make_request_decoder(pred, use_native=True)
+    for body in bodies:
+        if not np.array_equal(decode_native(body).array, pred.transform(decode_request(body))):
+            raise AssertionError("the native request decode departs from the PIL transform")
+    warm = [PreparedImage(np.zeros((h, w, 3), np.uint8), (w, h))] * 32
+    for b in (1, 2, 4, 8, 16, 32):  # the shapes the batcher pads to
+        pred.predict_batch(warm[:b])
+
+    train_dir, valid_dir = tmp / "native_train", tmp / "native_valid"
+    _write_annotated(train_dir, 64, seed=1)
+    _write_annotated(valid_dir, 16, seed=2)
+    aug = TrainAugmentation(cfg)
+    ds = CropDataset(cfg, train_dir, aug)
+    ds.localize_image_names()
+    loaders = {"native": Loader(ds, 32, shuffle=True, drop_last=True, num_workers=4,
+                                batch_fetch=choose_batch_fetch(cfg, ds, aug)),
+               "pil": Loader(CropDataset(dataclasses.replace(cfg, native_io=False),
+                                         train_dir, aug),
+                             32, shuffle=True, drop_last=True, num_workers=4)}
+    if loaders["native"].batch_fetch is None:
+        raise AssertionError("the train Loader did not take the native path")
+    first = {k: next(iter(loader))["image"] for k, loader in loaders.items()}
+    if first["native"].dtype != np.uint8 or not np.array_equal(first["native"], first["pil"]):
+        raise AssertionError("native and PIL train batches differ")
+    loader_rate: dict = {}
+    for which in ("native", "pil", "pil", "native"):
+        t0, n = time.perf_counter(), 0
+        for epoch in range(3):
+            loaders[which].set_epoch(epoch)
+            n += sum(1 for _ in loaders[which])
+        loader_rate.setdefault(which, []).append(n / (time.perf_counter() - t0))
+
+    common = ["--valid_dir", str(gt_dir), "--labels", str(labels), "--load_model", str(ckpt),
+              "--eval_batch_size", "32", "--num_workers", "4", "--conf_threshold", "0.1"]
+    flags = {"default": [], "pil": ["--no_native_io"]}
+    calls: dict = {}
+    # --- the main path: counts set to 0 just before, read just after
+    reset_launch_counts()
+    with _calls_counted(native, ("load_batch", "decode_bytes"), calls):
+        evaluate_rate, summaries = {}, {}
+        for which in ("default", "pil", "pil", "default"):
+            out = tmp / f"native_io_{which}.json"
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):  # its metric tables
+                evaluate.main([*common, *flags[which], "--save_summary", str(out)])
+            torch.cuda.synchronize()
+            evaluate_rate.setdefault(which, []).append(len(pngs) / (time.perf_counter() - t0))
+            summaries.setdefault(which, []).append(json.loads(out.read_text()))
+        evaluate_calls = calls.get("load_batch", 0)
+
+        def server(which):
+            if which == "default":
+                return contextlib.nullcontext()
+            return _patched(native, "supports_decode_bytes", lambda: False)
+
+        served = {}
+        for which in ("default", "pil"):  # one request at a time: batch 1 each
+            with server(which):
+                served[which] = _serve_once(pred, bodies, clients=1)
+        latency: dict = {}
+        for which in ("default", "pil", "pil", "default"):
+            with server(which):
+                run = _serve_once(pred, bodies, clients=4)
+            run.pop("answers")
+            latency.setdefault(which, []).append(run)
+        decode_calls = calls.get("decode_bytes", 0)
+
+        train_s: dict = {}
+        for which in ("default", "pil", "pil", "default"):
+            with _cwd(tmp), contextlib.redirect_stdout(io.StringIO()):
+                t0 = time.perf_counter()
+                train.main(["--train_dir", str(train_dir), "--valid_dir", str(valid_dir),
+                            "--labels", str(labels), "--epochs", "2", "--eval_batch_size",
+                            "16", "--num_workers", "4", *flags[which]])
+                torch.cuda.synchronize()
+                train_s.setdefault(which, []).append(time.perf_counter() - t0)
+        train_calls = calls.get("load_batch", 0) - evaluate_calls
+    launches = launch_counts()
+    # --- end of the main path
+
+    if any(s != summaries["pil"][0] for runs in summaries.values() for s in runs):
+        raise AssertionError(f"cli.evaluate summaries differ default/--no_native_io: "
+                             f"{summaries}")
+    if served["default"]["answers"] != served["pil"]["answers"]:
+        raise AssertionError("the default server's annotations differ from the PIL server's")
+    reported = [r["native_decode"] for r in [served["default"], *latency["default"]]]
+    if reported != [True] * 3 or any(r["native_decode"] for r in latency["pil"]):
+        raise AssertionError(f"/healthz native_decode {reported} on the default server")
+    if not (evaluate_calls and train_calls and decode_calls == 3 * len(bodies)):
+        raise AssertionError(f"native calls: evaluate {evaluate_calls} load_batch, train "
+                             f"{train_calls}, serve {decode_calls} decode_bytes")
+    if not launches["sigmoid_nms"] or not launches["sigmoid_nms_topk"]:
+        raise AssertionError(f"a kernel of the path was not launched: {launches}")
+
+    def mean(xs):
+        return sum(xs) / len(xs)
+
+    emit({"phase": "native_io", "card": card, "host_cpu": _host_cpu(),
+          "library": library, "net_size": [w, h], "images": len(pngs),
+          "decode_vs_pil": decode,
+          "evaluate_img_per_s_batch32": {k: mean(v) for k, v in evaluate_rate.items()},
+          "evaluate_img_per_s_runs": evaluate_rate, "evaluate_summaries_identical": True,
+          "serve_annotations_identical": True,
+          "serve_client_latency_ms": {k: {"p50": mean([r["client_p50_ms"] for r in v]),
+                                          "p95": mean([r["client_p95_ms"] for r in v])}
+                                      for k, v in latency.items()},
+          "serve_runs": latency,
+          "train_loader_batches_per_s_batch32": loader_rate, "cli_train_wall_s": train_s,
+          "native_calls": {"evaluate_load_batch": evaluate_calls,
+                           "train_load_batch": train_calls, "serve_decode_bytes": decode_calls},
+          "timing": "host clock; 'default' is the entry point as a user runs it, 'pil' with "
+                    "--no_native_io (the PIL server), in turns; serve latency at the client "
+                    "(decode included), 32 PNG requests, 4 clients, window 20 ms, max batch 32",
+          "launches": launches, "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
+@contextlib.contextmanager
+def _patched(module, name: str, value):
+    """`module.<name>` set to `value` for the block, then restored."""
+    real = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
 
 
 def _free_port() -> int:
@@ -1961,7 +2298,7 @@ def main(argv=None) -> int:
     emit({"phase": "device", "nvidia_smi": card, "torch": torch.__version__,
           "cuda": torch.version.cuda, "kind": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count()})
-    phase_build()
+    library = phase_build()
     kernels = phase_kernels(card)
     if args.parent is not None:
         phase_parent(card, args.parent.resolve())
@@ -1973,6 +2310,7 @@ def main(argv=None) -> int:
         work = Path(work)
         by_path["evaluate_detect"], ckpt, gt_dir = phase_evaluate_detect(
             card, args.load_model, work)
+        by_path["native_io"] = phase_native_io(card, library, work, ckpt, gt_dir)
         by_path["export"] = phase_export(card, work, ckpt, gt_dir)
         by_path["int8"], forward_ms["resnet34 int8_static"] = phase_int8(card, work, ckpt,
                                                                          gt_dir)

@@ -7,7 +7,9 @@ The port of `structuredetector_tpu/cli/evaluate.py`: each batch of
 `--eval_batch_size` images is forwarded once on the device (bf16 autocast
 unless `--no_amp`), then decoded by the `Decoder` (kernel A, sigmoid +
 NMS) at each threshold of `--conf_sweep` (or at `--conf_threshold`), and
-the detections accumulate into one `Evaluator` per threshold. Prints the
+the detections accumulate into one `Evaluator` per threshold. Images
+decode through the native library (`data/native.py`, byte-equal to
+PIL) unless `--no_native_io` is given. Prints the
 metric tables (the sweep's one-line readout with `--conf_sweep`); writes
 the flat summary with `--save_summary` and the keypoint CSV with
 `--save_csv_eval`. Runs on CUDA unless `--device cpu` is given.
@@ -32,7 +34,7 @@ def main(argv=None):
     from ..config import config_from_args
     from ..data.augment import ValidationAugmentation
     from ..data.dataset import CropDataset
-    from ..data.pipeline import Loader
+    from ..data.pipeline import Loader, choose_batch_fetch
     from ..evaluation import Evaluator
     from ..ops.decode import split_head_output
     from ..predictor import Predictor
@@ -44,9 +46,11 @@ def main(argv=None):
     if not config.pretrained_model:
         raise SystemExit("evaluate requires a trained model: pass --load_model <model_path>")
 
-    dataset = CropDataset(config, config.valid_dir, ValidationAugmentation(config))
+    augmentation = ValidationAugmentation(config)
+    dataset = CropDataset(config, config.valid_dir, augmentation)
     loader = Loader(dataset, batch_size=config.eval_batch_size,
-                    num_workers=config.num_workers)
+                    num_workers=config.num_workers,
+                    batch_fetch=choose_batch_fetch(config, dataset, augmentation))
     # the host normalizes in float32, as the JAX evaluate feeds its forward
     predictor = Predictor(config, device=args.device, device_normalize=False)
     decoder = predictor.decoder

@@ -25,8 +25,13 @@ def main(argv=None):
 
     from ..config import config_from_args
     from ..train.trainer import Trainer
+    from ..utils import set_build_dir
 
     config = config_from_args(rest)
+    if config.compile_cache:
+        # before the first build: the kernels and the native I/O library
+        # are then built in, and reused from, this directory
+        set_build_dir(config.compile_cache)
     if not config.train_dir:
         raise SystemExit("train requires --train_dir (annotated training samples)")
     if not config.valid_dir:

@@ -6,10 +6,8 @@ reference's flag names, defaults and invariants
 line works unchanged, plus the JAX package's training flags and model
 variants (`--backbone`, `--s2d_stem`, `--head_conv`). What the port
 does not do yet is accepted only at its default and raises a named
-error otherwise (`--data_parallel`, `--model_parallel`);
-`--native_io`/`--no_native_io`/`--native_io_fast` and `--compile_cache`
-are accepted and ignored (the port decodes images with PIL and compiles
-nothing ahead). The device is a `--device` flag of each CLI.
+error otherwise (`--data_parallel`, `--model_parallel`). The device is
+a `--device` flag of each CLI.
 """
 
 from __future__ import annotations
@@ -88,7 +86,16 @@ class Config:
     # cuDNN's and the allocator's first use of each shape happens before
     # the stall watchdog is armed
     prewarm: bool = True
-    compile_cache: str = ""  # accepted for JAX command lines; no effect
+    # directory the CUDA kernels and the native I/O library are built in
+    # and looked up from ('' = the package's _build/), so a fresh checkout
+    # reuses the builds of an earlier run (cli.train sets it)
+    compile_cache: str = ""
+    # native C++ decode + resize (data/native.py), exact mode byte-equal
+    # to the PIL path; PIL when the library does not build
+    native_io: bool = True
+    # the training feed decodes JPEG in DCT space with a 2-tap bilinear
+    # (close to PIL, not equal); validation and evaluate stay exact
+    native_io_fast: bool = False
     device_augment: bool = True  # jitter and flips on the card (--host_augment: PIL)
     uint8_feed: bool = True  # device augment: ship uint8, /255 on the card
     flip_prob: float = 0.5  # train-time h and v flip probability
@@ -356,21 +363,24 @@ def build_parser(parser: Optional[argparse.ArgumentParser] = None) -> argparse.A
                    help="Skip the throwaway step per multi-scale size before the "
                         "first epoch.")
     p.add_argument("--compile_cache", type=str, default=d.compile_cache,
-                   help="Accepted for the JAX package's command lines and ignored: "
-                        "the port runs eagerly and has no compilation cache.")
+                   help="Directory to build the CUDA kernels and the native I/O "
+                        "library in and reuse them from across runs ('' = the "
+                        "package's _build/).")
     p.add_argument("--seed", type=int, default=d.seed)
     p.add_argument("--num_workers", type=int, default=d.num_workers,
                    help="Host-side data prefetch threads.")
     p.add_argument("--host_augment", action="store_true",
                    help="Augment on the host with PIL (reference behavior) instead "
                         "of on the card.")
-    p.add_argument("--native_io", dest="native_io", action="store_true", default=True,
-                   help="Accepted for the JAX package's command lines and "
-                        "ignored: the port decodes images with PIL.")
+    p.add_argument("--native_io", dest="native_io", action="store_true",
+                   default=d.native_io,
+                   help="Decode images with the native C++ library (byte-equal to "
+                        "the PIL path; the default, PIL when it does not build).")
     p.add_argument("--no_native_io", dest="native_io", action="store_false",
-                   help="Accepted and ignored, as --native_io.")
+                   help="Decode images with PIL.")
     p.add_argument("--native_io_fast", action="store_true",
-                   help="Accepted and ignored, as --native_io.")
+                   help="Approximate fast decode of the training feed (DCT-scaled "
+                        "JPEG, 2-tap bilinear); validation and evaluate stay exact.")
     p.add_argument("--float_feed", action="store_true",
                    help="Ship the training batch as float32 [0, 1] instead of raw "
                         "uint8 (device augment only).")
@@ -453,6 +463,8 @@ def config_from_args(argv=None) -> Config:
         ema=ns.ema,
         prewarm=ns.prewarm,
         compile_cache=ns.compile_cache,
+        native_io=ns.native_io or ns.native_io_fast,
+        native_io_fast=ns.native_io_fast,
         device_augment=not ns.host_augment,
         uint8_feed=not ns.float_feed,
         flip_prob=min(1.0, max(0.0, ns.flip_prob)),

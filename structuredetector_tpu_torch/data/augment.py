@@ -15,6 +15,13 @@ The port of `structuredetector_tpu/data/augment.py` (reference
 - `PredictionTransformation` = Resize -> Normalize only
   (`transforms.py:270-286`).
 
+Where the host does no per-pixel augmentation (validation,
+`--no_augmentation`, the device-augment feed), `native_batch_apply`
+decodes a whole batch through the native library instead of PIL
+(`data/native.py`; byte-equal in exact mode), and `TrainAugmentation.
+native_apply` one item of the device-augment feed; each flattens the
+annotation as the PIL path does.
+
 Documented divergence, as in the JAX package: the reference draws its
 flip trigger from a normal distribution (`torch.randn(1) < prob`), so
 prob 0.5 flips ~69 % of the time; here the draw is uniform, and
@@ -31,7 +38,8 @@ import numpy as np
 
 from ..annotations import ImageAnnotation, hflip_annotation, vflip_annotation
 from ..ops.device_augment import IMAGENET_MEAN, IMAGENET_STD
-from .pipeline import flatten_annotation
+from . import native
+from .pipeline import FlatKeypoints, flatten_annotation
 
 MULTISCALE_RATIOS = (0.75, 0.8125, 0.875, 0.9375, 1, 1.0625, 1.125, 1.1875, 1.25)
 
@@ -209,6 +217,31 @@ class Flatten:
         return {"image": image, "keypoints": kp, "annotation": target}
 
 
+def _native_load_and_flatten(config, paths, targets, size, *, normalize: bool,
+                             exact: bool, uint8: bool, n_threads: int) -> dict:
+    """The whole-batch native path (JAX `augment.py:248-295`): one C++
+    call decodes and resizes every image of the batch into one NHWC
+    buffer on its own threads, then each annotation is stamped with its
+    file's size, resized and flattened as the PIL path does. Returns the
+    collated batch dict."""
+    w, h = size
+    images, orig, ok = native.load_batch(
+        paths, w, h, n_threads=n_threads, normalize=normalize, exact=exact,
+        dtype=np.uint8 if uint8 else np.float32)
+    if not ok.all():
+        bad = [str(p) for p, good in zip(paths, ok) if not good]
+        raise IOError(f"native decode failed for: {bad}")
+    flatten = Flatten(config)
+    kps, annotations = [], []
+    for image, target, (ow, oh) in zip(images, targets, orig):
+        target.img_size = (int(ow), int(oh))
+        sample = flatten(image, target.resized(target.img_size, (w, h)))
+        kps.append(sample["keypoints"])
+        annotations.append(sample["annotation"])
+    keypoints = FlatKeypoints(*(np.stack(field) for field in zip(*kps)))
+    return {"image": images, "keypoints": keypoints, "annotation": annotations}
+
+
 class TrainAugmentation:
     ratios = MULTISCALE_RATIOS  # transforms.py:212
 
@@ -258,6 +291,35 @@ class TrainAugmentation:
         return (max(32, int(ratio * self.config.width / 32) * 32),
                 max(32, int(ratio * self.config.height / 32) * 32))
 
+    def native_apply(self, image_path, target: ImageAnnotation) -> dict:
+        """The per-item native route of the device-augment feed: decode and
+        resize in C++ to raw uint8 (or [0, 1] float); jitter, flips and
+        normalization run on the card."""
+        if not self.device_augment:
+            raise ValueError("the per-item native route is the device-augment feed only")
+        size = self.current_size
+        arr, orig_size = native.load_image(
+            image_path, *size, normalize=False, exact=not self.config.native_io_fast,
+            dtype=np.uint8 if self.uint8_feed else np.float32)
+        target.img_size = orig_size
+        return Flatten(self.config)(arr, target.resized(orig_size, size))
+
+    def supports_native_batch(self) -> bool:
+        """The whole-batch native loader covers the modes where the host
+        does no per-pixel augmentation: `--no_augmentation` (resize and
+        normalize) and the device-augment feed. PIL's host augmentation
+        keeps the per-sample path."""
+        return self.config.no_augmentation or self.device_augment
+
+    def native_batch_apply(self, paths, targets, n_threads: int = 4) -> dict:
+        if not self.supports_native_batch():
+            raise ValueError("whole-batch native loading needs --no_augmentation or the "
+                             "device-augment feed")
+        return _native_load_and_flatten(
+            self.config, paths, targets, self.current_size,
+            normalize=not self.device_augment, exact=not self.config.native_io_fast,
+            uint8=self.uint8_feed, n_threads=n_threads)
+
     def trigger_random_resize(self, next_epoch: Optional[int] = None):
         """Re-roll the input size for the next epoch (transforms.py:237-
         244), snapped to multiples of 32. With `next_epoch` the roll is a
@@ -281,12 +343,23 @@ class ValidationAugmentation:
     pixels, clipped to the image}."""
 
     def __init__(self, config):
+        self.config = config
         self.transform = Compose(
             [Resize((config.width, config.height)), Normalize(), Flatten(config)]
         )
 
     def __call__(self, image, target):
         return self.transform(image, target)
+
+    def supports_native_batch(self) -> bool:
+        return True
+
+    def native_batch_apply(self, paths, targets, n_threads: int = 4) -> dict:
+        """Decode, resize and normalize the batch in C++ (exact mode, always)."""
+        cfg = self.config
+        return _native_load_and_flatten(cfg, paths, targets, (cfg.width, cfg.height),
+                                        normalize=True, exact=True, uint8=False,
+                                        n_threads=n_threads)
 
 
 class RawImage:

@@ -1,13 +1,15 @@
 """Datasets over directories of JSON-annotated images.
 
-The port's own copy of `structuredetector_tpu/data/dataset.py` (PIL
-only; the JAX package's native C++ decode is not part of the port yet):
+The port's own copy of `structuredetector_tpu/data/dataset.py`:
 
 - `CropDataset` over a directory of `.json` annotation files (sorted),
   images opened with PIL, true `img_size` stamped (reference
-  `dataset.py:13-49`); `localize_image_names()` rewrites the JSONs so
-  `image_path` points next to each (`dataset.py:51-55`), as the trainer
-  asks,
+  `dataset.py:13-49`); with `--native_io` and the device-augment feed an
+  item decodes through the native library instead (`data/native.py`);
+  `raw_item` gives the image path and annotation undecoded, the feed of
+  the whole-batch native loader; `localize_image_names()` rewrites the
+  JSONs so `image_path` points next to each (`dataset.py:51-55`), as the
+  trainer asks,
 - `PredictionDataset` over unlabeled `.jpg`/`.jpeg`/`.png` images
   (`dataset.py:168-184`),
 - `LabelStats`/`DatasetStats` summaries (`dataset.py:187-237`).
@@ -20,6 +22,7 @@ from pathlib import Path
 from typing import List
 
 from ..annotations import ImageAnnotation, files_with_extension
+from . import native
 
 
 def _open_rgb(path):
@@ -41,12 +44,18 @@ class CropDataset:
         return len(self.files)
 
     def raw_item(self, index):
-        """(image_path, annotation) without decoding the image."""
+        """(image_path, annotation) without decoding the image: the whole-
+        batch native loader decodes and stamps the original sizes itself."""
         annotation = ImageAnnotation.from_json(self.files[index], self.config.anchor_name)
         return annotation.image_path, annotation
 
     def __getitem__(self, index):
         annotation = ImageAnnotation.from_json(self.files[index], self.config.anchor_name)
+        # the per-item native route is the device-augment feed's only:
+        # host augmentation and --no_augmentation items decode with PIL
+        if (self.config.native_io and getattr(self.transform, "device_augment", False)
+                and native.available()):
+            return self.transform.native_apply(annotation.image_path, annotation)
         image = _open_rgb(annotation.image_path)
         annotation.img_size = image.size
         if self.transform is not None:

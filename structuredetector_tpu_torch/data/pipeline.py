@@ -11,17 +11,19 @@ The port of `structuredetector_tpu/data/pipeline.py`:
   parts mid-iteration; coordinates are clipped to the input, then scaled
   into the grid;
 - `collate` and `Loader` (shuffled by (seed, epoch), so a resumed run
-  replays the batch order; a thread pool for the per-sample loads);
+  replays the batch order; a thread pool for the per-sample loads, or a
+  whole-batch `batch_fetch`);
+- `native_batch_fetch` / `choose_batch_fetch`: the whole-batch native
+  loader (`data/native.py`), which `--native_io` turns on where the host
+  does no per-pixel augmentation;
 - `device_prefetch` stages batches on the device ahead of the consumer.
-
-The JAX package's whole-batch native loader (`native_batch_fetch`,
-`choose_batch_fetch`) and its multi-host slicing are not part of the
-port: `--native_io` is accepted and ignored.
 """
 
 from __future__ import annotations
 
 import collections
+import queue
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, NamedTuple, Sequence
 
@@ -29,6 +31,7 @@ import numpy as np
 import torch
 
 from ..annotations import ImageAnnotation, clip_annotation
+from . import native
 
 
 class FlatKeypoints(NamedTuple):
@@ -125,10 +128,16 @@ class Loader:
     `drop_last` drops a last, smaller batch. With `num_workers > 0`,
     every sample load is a task on a thread pool of that size (PIL's
     decode and resize and the numpy work release the GIL), and up to
-    `PREFETCH_BATCHES` batches of loads stay in flight."""
+    `PREFETCH_BATCHES` batches of loads stay in flight.
+
+    With `batch_fetch`, a callable from a batch's indices to its collated
+    dict (`native_batch_fetch`), whole batches are made on one
+    coordinator thread, up to `PREFETCH_BATCHES` ahead; the parallelism
+    lives inside the call (the native loader's own threads)."""
 
     def __init__(self, dataset, batch_size: int = 1, shuffle: bool = False,
-                 drop_last: bool = False, num_workers: int = 0, seed: int = 0):
+                 drop_last: bool = False, num_workers: int = 0, seed: int = 0,
+                 batch_fetch=None):
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
         self.dataset = dataset
@@ -137,6 +146,7 @@ class Loader:
         self.drop_last = drop_last
         self.num_workers = num_workers
         self.seed = seed
+        self.batch_fetch = batch_fetch
         self._epoch = 0
 
     def set_epoch(self, epoch: int) -> None:
@@ -161,6 +171,9 @@ class Loader:
 
     def __iter__(self):
         batches = self._index_batches()
+        if self.batch_fetch is not None:
+            yield from self._iter_batch_fetch(batches)
+            return
         if self.num_workers <= 0:
             for idxs in batches:
                 yield collate([self.dataset[i] for i in idxs])
@@ -181,6 +194,76 @@ class Loader:
                 samples = [f.result() for f in futures]
                 stage_next()
                 yield collate(samples)
+
+    def _iter_batch_fetch(self, batches):
+        """Whole batches made ahead on a coordinator thread; an error
+        there is raised here, at the batch it struck."""
+        staged: queue.Queue = queue.Queue(maxsize=PREFETCH_BATCHES)
+        stop = threading.Event()
+        done = object()
+
+        def put(item) -> bool:
+            while not stop.is_set():
+                try:
+                    staged.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def produce():
+            try:
+                for idxs in batches:
+                    if not put(self.batch_fetch(idxs)):
+                        return
+            except Exception as e:  # handed to the consumer, raised there
+                put(e)
+            put(done)
+
+        worker = threading.Thread(target=produce, daemon=True)
+        worker.start()
+        try:
+            while True:
+                item = staged.get()
+                if item is done:
+                    break
+                if isinstance(item, Exception):
+                    raise item
+                yield item
+        finally:
+            # a consumer that stops early (break, an error) lets the
+            # coordinator finish its batch and end
+            stop.set()
+            worker.join()
+
+
+def native_batch_fetch(dataset, transform, n_threads: int = 4):
+    """A `Loader(batch_fetch=...)` callable over the native library: the
+    annotations are read on the coordinator thread without decoding the
+    images, then one `native.load_batch` call decodes the whole batch on
+    `n_threads` C++ threads outside the GIL."""
+
+    def fetch(indices):
+        pairs = [dataset.raw_item(i) for i in indices]
+        return transform.native_batch_apply(
+            [path for path, _ in pairs], [target for _, target in pairs],
+            n_threads=n_threads)
+
+    return fetch
+
+
+def choose_batch_fetch(config, dataset, transform):
+    """The whole-batch native loader where `--native_io` asks for it, the
+    library is built and the transform's mode allows it (no per-pixel
+    host augmentation); else None, the per-sample PIL path (JAX
+    `pipeline.py:280-295`)."""
+    if not config.native_io or not native.available():
+        return None
+    supports = getattr(transform, "supports_native_batch", None)
+    if supports is None or not supports():
+        return None
+    return native_batch_fetch(dataset, transform,
+                              n_threads=max(2, config.num_workers or 4))
 
 
 def keypoints_to_device(kp: FlatKeypoints, device) -> Dict[str, torch.Tensor]:

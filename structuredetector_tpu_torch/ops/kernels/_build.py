@@ -1,8 +1,9 @@
 """Build the CUDA sources under `csrc/` and load them with ctypes.
 
 Each `csrc/<name>.cu` exposes plain C functions (no PyTorch headers), so
-`nvcc` compiles it in seconds into `_build/<name>-<hash>.so` inside the
-package directory (listed in `.gitignore`). The hash covers the source,
+`nvcc` compiles it in seconds into `<name>-<hash>.so` under
+`utils.build_dir()`: the package's `_build/` (listed in `.gitignore`),
+or the directory of `--compile_cache`. The hash covers the source,
 the shared headers `csrc/*.cuh` and the flags, so an edited source or
 header never loads a stale library. All
 sources compile in parallel, one `nvcc` each, on the first call of
@@ -24,8 +25,9 @@ import time
 from pathlib import Path
 from typing import Dict
 
+from ...utils import build_dir
+
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "_build"
 SOURCES = ("sigmoid_nms", "sigmoid_nms_topk", "sigmoid_nms_topk_rowmax")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -72,7 +74,7 @@ def _target(name: str) -> Path:
     content = b"".join(p.read_bytes() for p in
                        [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(content + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    return build_dir() / f"{name}-{digest}.so"
 
 
 def build_all() -> float:
@@ -83,7 +85,7 @@ def build_all() -> float:
     if not todo:
         return 0.0
     nvcc = _nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build_dir().mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in todo:
         tmp = _target(name).with_suffix(f".{os.getpid()}.tmp")

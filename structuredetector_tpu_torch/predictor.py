@@ -153,6 +153,11 @@ class Predictor:
         runs on the device)."""
         return bool(self.transform.device_normalize)
 
+    @property
+    def feed_normalize(self) -> bool:
+        """True when the host ImageNet-normalizes the float32 feed."""
+        return not self.feed_uint8
+
     @torch.inference_mode()
     def forward(self, batch: torch.Tensor) -> torch.Tensor:
         """(B, H, W, 3) host feed on the device -> (B, M+N+4, H/4, W/4)

@@ -8,7 +8,11 @@ arrival), and one forward + decode serves the whole group. Batches pad
 to the next power of two, so only log2(max_batch)+1 shapes ever run.
 
 The HTTP layer is stdlib (`ThreadingHTTPServer`): one POST per image,
-the annotation JSON back in the reference's public schema.
+the annotation JSON back in the reference's public schema. A request's
+bytes decode in its handler thread, through the native library
+(`data/native.py`: decode and resize in C++ with the GIL released,
+byte-equal to PIL) when it is built, else with PIL; `/healthz` says
+which (`model.native_decode`).
 """
 
 from __future__ import annotations
@@ -25,7 +29,10 @@ from typing import Optional
 import numpy as np
 import torch
 
-__all__ = ["MicroBatcher", "make_server", "run_server"]
+from .data import native
+from .predictor import PreparedImage
+
+__all__ = ["MicroBatcher", "make_request_decoder", "make_server", "run_server"]
 
 _SHUTDOWN = object()
 
@@ -350,6 +357,38 @@ def decode_request(data: bytes):
     return image
 
 
+def make_request_decoder(predictor, use_native: bool):
+    """Request bytes -> the predictor's feed (JAX `serve.py:405-445`).
+
+    With `use_native`, the native library decodes and resizes the payload
+    into a `PreparedImage` of the predictor's feed, so the batch skips the
+    per-image PIL transform; the three feeds, as `feed_uint8` and
+    `feed_normalize` say:
+
+    - uint8 RGB, normalized on the device (`Predictor(device_normalize=
+      True)`, an `--uint8_input` artifact);
+    - float32 ImageNet-normalized on the host;
+    - neither (a float artifact exported with `--norm`, whose program
+      owns /255 and mean/std): raw [0, 255] float32, decoded as uint8
+      and widened (the library's float output is [0, 1]).
+
+    Without it, `decode_request`: a loaded PIL image. Either way a bad
+    payload raises here, in the request's own thread."""
+    if not use_native:
+        return decode_request
+    cfg = predictor.config
+    feed_u8, feed_norm = predictor.feed_uint8, predictor.feed_normalize
+
+    def decode_native(data: bytes) -> PreparedImage:
+        arr, size = native.decode_bytes(data, cfg.width, cfg.height, normalize=feed_norm,
+                                        dtype=np.float32 if feed_norm else np.uint8)
+        if not feed_u8 and not feed_norm:
+            arr = arr.astype(np.float32)
+        return PreparedImage(arr, size)
+
+    return decode_native
+
+
 def make_server(predictor, host: str = "127.0.0.1", port: int = 8000,
                 max_batch: int = 8, window_ms: float = 5.0,
                 submit_timeout_s: Optional[float] = 30.0,
@@ -369,11 +408,17 @@ def make_server(predictor, host: str = "127.0.0.1", port: int = 8000,
                            submit_timeout_s=submit_timeout_s,
                            predict_split=split)
     cfg = predictor.config
+    # the per-request PIL decode and resize held the JAX server far below
+    # its device's rate (JAX serve.py:475-482): decode natively when the
+    # library is built, else fall back to PIL, and say which
+    use_native = native.supports_decode_bytes()
+    decode = make_request_decoder(predictor, use_native)
     model_info = {
         "width": cfg.width, "height": cfg.height,
         "anchors": list(cfg.labels.keys()), "parts": list(cfg.parts.keys()),
         "anchor_name": cfg.anchor_name,
         "device": str(predictor.device),
+        "native_decode": use_native,
     }
 
     class Handler(BaseHTTPRequestHandler):
@@ -425,7 +470,7 @@ def make_server(predictor, host: str = "127.0.0.1", port: int = 8000,
                 })
                 return
             try:
-                image = decode_request(self.rfile.read(length))
+                image = decode(self.rfile.read(length))
             except Exception as e:
                 self._reply(400, {"error": f"bad image payload: {e}"})
                 return

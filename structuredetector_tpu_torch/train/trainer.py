@@ -32,7 +32,7 @@ import torch
 from ..data.augment import TrainAugmentation, ValidationAugmentation
 from ..data.dataset import CropDataset
 from ..data.decoders import Decoder
-from ..data.pipeline import Loader, device_prefetch
+from ..data.pipeline import Loader, choose_batch_fetch, device_prefetch
 from ..evaluation import Evaluator
 from ..models.network import init_model
 from ..models.weights import (
@@ -249,16 +249,22 @@ class Trainer:
         self.train_augmentation = TrainAugmentation(config)
         self.train_set = CropDataset(config, config.train_dir, self.train_augmentation)
         self.train_set.localize_image_names()
-        self.train_loader = Loader(self.train_set, batch_size=config.batch_size, shuffle=True,
-                                   drop_last=True, num_workers=config.num_workers,
-                                   seed=config.seed)
-        self.valid_set = CropDataset(config, config.valid_dir, ValidationAugmentation(config))
+        # --native_io: whole batches through the native library where the
+        # host does no per-pixel augmentation, else the per-sample PIL path
+        self.train_loader = Loader(
+            self.train_set, batch_size=config.batch_size, shuffle=True, drop_last=True,
+            num_workers=config.num_workers, seed=config.seed,
+            batch_fetch=choose_batch_fetch(config, self.train_set, self.train_augmentation))
+        valid_augmentation = ValidationAugmentation(config)
+        self.valid_set = CropDataset(config, config.valid_dir, valid_augmentation)
         self.valid_set.localize_image_names()
         # --eval_batch_size > 1 batches validation; detection metrics are
         # batch-invariant, the reported loss shifts a little because the
         # focal loss normalizes over the batch
-        self.valid_loader = Loader(self.valid_set, batch_size=config.eval_batch_size,
-                                   num_workers=config.num_workers)
+        self.valid_loader = Loader(
+            self.valid_set, batch_size=config.eval_batch_size,
+            num_workers=config.num_workers,
+            batch_fetch=choose_batch_fetch(config, self.valid_set, valid_augmentation))
 
         self.state = create_train_state(config, self.model, max(1, len(self.train_loader)))
         self.lr_schedule = self.state.lr_schedule

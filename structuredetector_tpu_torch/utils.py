@@ -1,8 +1,31 @@
-"""Device selection for the port's entry points."""
+"""Device selection for the port's entry points, and the directory its
+native builds live in."""
 
 from __future__ import annotations
 
+from pathlib import Path
+
 import torch
+
+# The CUDA kernels (`ops/kernels/_build.py`) and the native I/O library
+# (`data/native.py`) are compiled on first use into this directory, one
+# file a source named after a hash of what went into it, so a build is
+# reused by every later process that finds it there.
+DEFAULT_BUILD_DIR = Path(__file__).resolve().parent / "_build"
+_build_dir = DEFAULT_BUILD_DIR
+
+
+def build_dir() -> Path:
+    """Where native builds are looked up and written."""
+    return _build_dir
+
+
+def set_build_dir(path) -> None:
+    """Look up and write native builds under `path` (`--compile_cache`),
+    so a fresh checkout reuses them. Call it before the first build: a
+    library already loaded in this process stays loaded."""
+    global _build_dir
+    _build_dir = Path(path).expanduser().resolve()
 
 
 def resolve_device(device="cuda") -> torch.device:
