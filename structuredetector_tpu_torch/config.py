@@ -4,10 +4,10 @@ The port's own copy of `structuredetector_tpu/config.py`: the
 reference's flag names, defaults and invariants
 (`/root/reference/src/sdnet/utils/args.py`), so a reference command
 line works unchanged, plus the JAX package's training flags and model
-variants (`--backbone`, `--s2d_stem`, `--head_conv`). What the port
-does not do yet is accepted only at its default and raises a named
-error otherwise (`--data_parallel`, `--model_parallel`). The device is
-a `--device` flag of each CLI.
+variants (`--backbone`, `--s2d_stem`, `--head_conv`). `--data_parallel`
+is 0 (every rank) or the number of ranks torchrun started
+(`parallel.mesh`); `--model_parallel` is accepted only at 1 and raises a
+named error otherwise. The device is a `--device` flag of each CLI.
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ import torch
 
 from .annotations import get_unique_color_map
 from .models.resnet import ARCHS
+from .parallel.mesh import data_parallel_size
 
 DEFAULT_SEED = 926354916  # reference args.py:257
 
@@ -112,7 +113,8 @@ class Config:
     s2d_stem: bool = False
     head_conv: int = 0
 
-    # accepted only at these defaults until the port has them
+    # ranks on the data axis (0 = every rank torchrun started); the model
+    # axis is accepted only at 1 (parallel.mesh)
     data_parallel: int = 0
     model_parallel: int = 1
 
@@ -211,15 +213,8 @@ class Config:
             raise ValueError(
                 f"unknown hm_loss_fn {self.hm_loss_fn!r}: pick 'focal' or 'mse'"
             )
-        not_ported = [
-            (self.data_parallel in (0, 1), f"--data_parallel {self.data_parallel}: "
-             "the port runs on one device (multi-GPU is not ported yet)"),
-            (self.model_parallel == 1, f"--model_parallel {self.model_parallel}: "
-             "the port runs on one device (multi-GPU is not ported yet)"),
-        ]
-        for ok, message in not_ported:
-            if not ok:
-                raise ValueError(message)
+        # 0 or the number of ranks torchrun started; no model axis
+        data_parallel_size(self.data_parallel, self.model_parallel)
         if self.backbone not in ARCHS:
             raise ValueError(
                 f"unknown backbone {self.backbone!r}: pick one of {sorted(ARCHS)}"
@@ -344,9 +339,12 @@ def build_parser(parser: Optional[argparse.ArgumentParser] = None) -> argparse.A
                         "$TORCH_HOME/hub/checkpoints/<backbone>-*.pth); nothing is "
                         "downloaded.")
     p.add_argument("--data_parallel", type=int, default=d.data_parallel,
-                   help="Devices on the data axis: 0 or 1 (one device) only.")
+                   help="Ranks on the data axis: 0 (every rank) or the number of ranks "
+                        "(torchrun --nproc_per_node N -m structuredetector_tpu_torch.cli."
+                        "train --data_parallel N).")
     p.add_argument("--model_parallel", type=int, default=d.model_parallel,
-                   help="Devices on the model axis: 1 only.")
+                   help="Devices on the model axis: 1 only (output-channel tensor "
+                        "parallelism is not ported).")
     p.add_argument("--profile", action="store_true",
                    help="Write a torch.profiler trace of training steps 5-10 to "
                         "<run dir>/profile.")

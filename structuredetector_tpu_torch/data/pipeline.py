@@ -12,7 +12,8 @@ The port of `structuredetector_tpu/data/pipeline.py`:
   into the grid;
 - `collate` and `Loader` (shuffled by (seed, epoch), so a resumed run
   replays the batch order; a thread pool for the per-sample loads, or a
-  whole-batch `batch_fetch`);
+  whole-batch `batch_fetch`; under data parallelism each rank loads its
+  slice of every global batch, `parallel.multihost`);
 - `native_batch_fetch` / `choose_batch_fetch`: the whole-batch native
   loader (`data/native.py`), which `--native_io` turns on where the host
   does no per-pixel augmentation;
@@ -31,6 +32,7 @@ import numpy as np
 import torch
 
 from ..annotations import ImageAnnotation, clip_annotation
+from ..parallel.multihost import process_slice
 from . import native
 
 
@@ -133,13 +135,23 @@ class Loader:
     With `batch_fetch`, a callable from a batch's indices to its collated
     dict (`native_batch_fetch`), whole batches are made on one
     coordinator thread, up to `PREFETCH_BATCHES` ahead; the parallelism
-    lives inside the call (the native loader's own threads)."""
+    lives inside the call (the native loader's own threads).
+
+    With `process_count` > 1, `batch_size` is the global batch: every
+    rank draws the same global order and loads its contiguous slice of
+    each global batch (`parallel.multihost.process_slice`, either route),
+    and `len()` counts global batches."""
 
     def __init__(self, dataset, batch_size: int = 1, shuffle: bool = False,
                  drop_last: bool = False, num_workers: int = 0, seed: int = 0,
-                 batch_fetch=None):
+                 batch_fetch=None, process_index: int = 0, process_count: int = 1):
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
+        if batch_size % process_count:
+            raise ValueError(f"the global batch {batch_size} does not divide by the "
+                             f"{process_count} processes")
+        self.process_index = process_index
+        self.process_count = process_count
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -154,10 +166,11 @@ class Loader:
         self._epoch = int(epoch)
 
     def __len__(self):
-        n = len(self.dataset)
-        if self.drop_last:
-            return n // self.batch_size
-        return (n + self.batch_size - 1) // self.batch_size
+        full, rest = divmod(len(self.dataset), self.batch_size)
+        # a last, smaller batch is kept where it splits over the processes
+        if rest and not self.drop_last and rest % self.process_count == 0:
+            full += 1
+        return full
 
     def _index_batches(self) -> List[List[int]]:
         order = np.arange(len(self.dataset))
@@ -167,6 +180,9 @@ class Loader:
                    for s in range(0, len(order), self.batch_size)]
         if self.drop_last:
             batches = [b for b in batches if len(b) == self.batch_size]
+        if self.process_count > 1:
+            batches = [local for b in batches if (local := process_slice(
+                b, self.process_index, self.process_count)) is not None]
         return batches
 
     def __iter__(self):

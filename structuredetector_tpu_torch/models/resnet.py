@@ -23,10 +23,65 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel.mesh import world_size
+
 STAGE_WIDTHS = (64, 128, 256, 512)  # base widths; a Bottleneck stage puts out 4x
+
+
+def _channel_sums(t: torch.Tensor) -> torch.Tensor:
+    return t.sum(dim=(0, 2, 3))
+
+
+def _per_channel(v: torch.Tensor) -> torch.Tensor:
+    return v.view(1, -1, 1, 1)
+
+
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Train-mode batch norm over the global batch of every rank of the
+    default process group, in float32. Forward: the channel sums, then the
+    centred sums of squares, each all-reduced (two passes, so the
+    variance keeps its digits where the mean is large); the batch
+    variance is the biased one over the global count n (every rank holds
+    a batch of the same shape, `parallel.multihost`). Backward: the
+    rank's dx of the global loss from the all-reduced sums of dy and
+    dy * x_hat; the weight and bias gradients stay the rank's own, which
+    the data-parallel step averages with the other parameters'."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        xf = x.float()
+        n = x.numel() // x.shape[1] * dist.get_world_size()
+        sums = _channel_sums(xf)
+        dist.all_reduce(sums)
+        mean = sums / n
+        centred = xf - _per_channel(mean)
+        sq = _channel_sums(centred * centred)
+        dist.all_reduce(sq)
+        var = sq / n
+        invstd = torch.rsqrt(var + eps)
+        y = centred * _per_channel(invstd * weight) + _per_channel(bias)
+        ctx.n = n
+        ctx.save_for_backward(x, weight, mean, invstd)
+        ctx.mark_non_differentiable(mean, var)
+        return y.to(x.dtype), mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, weight, mean, invstd = ctx.saved_tensors
+        n = ctx.n
+        dyf = dy.float()
+        x_hat = (x.float() - _per_channel(mean)) * _per_channel(invstd)
+        c = x.shape[1]
+        local = torch.cat((_channel_sums(dyf), _channel_sums(dyf * x_hat)))
+        sums = local.clone()
+        dist.all_reduce(sums)
+        dx = (dyf - _per_channel(sums[:c] / n) - x_hat * _per_channel(sums[c:] / n)) \
+            * _per_channel(invstd * weight)
+        return dx.to(x.dtype), local[c:], local[:c], None
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -37,13 +92,26 @@ class BatchNorm2d(nn.BatchNorm2d):
     over n = B * H * W: rv <- rv (1 - m) / n + v (n - 1) / n. (The kernel
     may keep the variance it was given for its backward pass, so the
     buffer itself is not handed to it.) The module and its state_dict
-    keys are torch's."""
+    keys are torch's.
+
+    In train mode under a process group of more than one rank (data
+    parallelism, `parallel.mesh`), the statistics are those of the
+    global batch, as under the JAX package's sharded `jit`: the forward
+    and the backward all-reduce them (`_GlobalBatchNorm`), and the
+    running statistics take the global mean and the biased variance over
+    n = world * B * H * W, the same on every rank."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not (self.training and self.track_running_stats):
             return super().forward(x)
         self._check_input_dim(x)
         self.num_batches_tracked.add_(1)
+        if world_size() > 1:
+            y, mean, var = _GlobalBatchNorm.apply(x, self.weight, self.bias, self.eps)
+            with torch.no_grad():
+                self.running_mean.mul_(1.0 - self.momentum).add_(mean, alpha=self.momentum)
+                self.running_var.mul_(1.0 - self.momentum).add_(var, alpha=self.momentum)
+            return y
         v = self.running_var.clone()
         y = F.batch_norm(x, self.running_mean, v, self.weight, self.bias, True,
                          self.momentum, self.eps)

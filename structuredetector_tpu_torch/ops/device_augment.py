@@ -20,7 +20,9 @@ those draws. The train step seeds its generator from (seed, step)
 run, as `jax.random.fold_in(PRNGKey(seed), step)` does in the JAX
 package. The numbers are torch's, not `jax.random`'s: the two packages
 draw different augmentations from the same seed, and the tests feed the
-JAX draws into `apply_augment` to compare the transforms.
+JAX draws into `apply_augment` to compare the transforms. Under data
+parallelism the draws are made for the global batch and each rank takes
+its slice, so two ranks augment as one process does the joined batch.
 
 Images are (B, H, W, 3) in [0, 1], in the JAX package's layout; the
 maths runs in the image dtype (bf16 under amp), with the contrast's luma
@@ -64,10 +66,14 @@ def step_generator(seed: int, step: int) -> torch.Generator:
 def draw_augment_params(b: int, generator: torch.Generator, *, device,
                         brightness: float = BRIGHTNESS, contrast: float = CONTRAST,
                         saturation: float = SATURATION, hue: float = HUE,
-                        flip_prob: float = 0.5) -> AugmentParams:
+                        flip_prob: float = 0.5, rank: int = 0,
+                        world: int = 1) -> AugmentParams:
     """Draw one batch's factors and flags on the CPU from `generator` and
     move them to `device`. A jitter of strength 0 draws factor 1 (no
-    change); the draws are made in a fixed order either way."""
+    change); the draws are made in a fixed order either way. With
+    `world` > 1, `b` is a rank's batch: the draws are made for the global
+    batch of `world * b` and this is rank `rank`'s contiguous slice."""
+    local, b = b, b * world
 
     def uniform(lo, hi):
         return torch.rand(b, generator=generator) * (hi - lo) + lo
@@ -84,7 +90,8 @@ def draw_augment_params(b: int, generator: torch.Generator, *, device,
         hflip=torch.rand(b, generator=generator) < flip_prob,
         vflip=torch.rand(b, generator=generator) < flip_prob,
     )
-    return AugmentParams(*(t.to(device, non_blocking=True) for t in draws))
+    part = slice(rank * local, (rank + 1) * local)
+    return AugmentParams(*(t[part].to(device, non_blocking=True) for t in draws))
 
 
 def _luma(images: torch.Tensor) -> torch.Tensor:
@@ -189,8 +196,10 @@ def apply_augment(images: torch.Tensor, kp: Dict[str, torch.Tensor], params: Aug
 
 def device_augment(images: torch.Tensor, kp: Dict[str, torch.Tensor],
                    generator: torch.Generator, *, out_w: int, out_h: int,
-                   flip_prob: float = 0.5) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Draw a batch's augmentation from `generator` and apply it."""
+                   flip_prob: float = 0.5, rank: int = 0,
+                   world: int = 1) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Draw a batch's augmentation from `generator` (for the global batch
+    of `world` ranks, `draw_augment_params`) and apply it."""
     params = draw_augment_params(images.shape[0], generator, device=images.device,
-                                 flip_prob=flip_prob)
+                                 flip_prob=flip_prob, rank=rank, world=world)
     return apply_augment(images, kp, params, out_w=out_w, out_h=out_h)

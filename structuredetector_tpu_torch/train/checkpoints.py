@@ -15,6 +15,10 @@ The port of `structuredetector_tpu/train/checkpoints.py`:
   --load_model` read them. The best metrics persist in
   `best_metrics.json` across `--resume`, with the epoch of each capture
   for the end-of-run staleness report.
+
+Neither creates a directory before its first write, so a data-parallel
+run builds both on every rank (`--resume` reads on every rank) and only
+rank 0, which alone writes, makes the run directory.
 """
 
 from __future__ import annotations
@@ -36,10 +40,11 @@ _STATE_FILE = re.compile(r"step_(\d+)\.pt")
 class CheckpointManager:
     def __init__(self, directory, max_to_keep: int = 2):
         self.directory = Path(directory).resolve() / "state"
-        self.directory.mkdir(parents=True, exist_ok=True)
         self.max_to_keep = max_to_keep
 
     def _steps(self):
+        if not self.directory.is_dir():
+            return []
         return sorted(int(m.group(1)) for p in self.directory.iterdir()
                       if (m := _STATE_FILE.fullmatch(p.name)))
 
@@ -48,6 +53,7 @@ class CheckpointManager:
 
     def save_state(self, step: int, state: TrainState) -> Path:
         path = self._path(step)
+        self.directory.mkdir(parents=True, exist_ok=True)
         tmp = path.with_name(path.name + ".tmp")
         torch.save(state.state_dict(), tmp)
         os.replace(tmp, path)
@@ -83,7 +89,6 @@ class BestModelSaver:
 
     def __init__(self, save_dir):
         self.save_dir = Path(save_dir)
-        self.save_dir.mkdir(parents=True, exist_ok=True)
         self.best_loss = float("inf")
         self.best_csi = 0.0
         self.best_classif = 0.0
@@ -139,6 +144,8 @@ class BestModelSaver:
         if better["kp_reg"]:
             self.best_kp_reg = kp_f1
         saved = [k for k in self.KINDS if better[k]]
+        if saved:
+            self.save_dir.mkdir(parents=True, exist_ok=True)
         for k in saved:
             save_msgpack(weights, self.save_dir / f"model_best_{k}.msgpack")
             self.captured_epoch[k] = epoch

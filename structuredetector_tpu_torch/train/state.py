@@ -9,13 +9,22 @@ decay) with its learning rate set before every step from
 `make_lr_schedule` at the state's step count. The rate decays /10 at
 each boundary, from the step equal to it on (optax's
 `piecewise_constant_schedule`).
+
+Under data parallelism the state keeps the module itself: the optimizer
+is built over its parameters, and `state_dict` (the checkpoints, the
+`.msgpack` snapshots) has its keys, with no `module.` prefix. The
+`DistributedDataParallel` wrapper that the train step calls lives beside
+it (`TrainState.step_module`).
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
+from torch.nn.parallel import DistributedDataParallel
+
+from ..parallel.mesh import world_size
 
 
 def make_lr_schedule(config, steps_per_epoch: int) -> Callable[[int], float]:
@@ -62,6 +71,22 @@ class TrainState:
         self.optimizer = optimizer
         self.lr_schedule = lr_schedule
         self.step = step
+        self._ddp: Optional[DistributedDataParallel] = None
+
+    def step_module(self) -> torch.nn.Module:
+        """The module the train step calls: the model, or under a process
+        group of more than one rank a `DistributedDataParallel` around it,
+        made at the first call (every rank takes its first step together;
+        DDP's construction broadcasts rank 0's parameters). The BN buffers
+        are not broadcast: the global-batch BatchNorm keeps them equal."""
+        if world_size() == 1:
+            return self.model
+        if self._ddp is None:
+            device = next(self.model.parameters()).device
+            self._ddp = DistributedDataParallel(
+                self.model, device_ids=[device] if device.type == "cuda" else None,
+                broadcast_buffers=False)
+        return self._ddp
 
     def apply_gradients(self) -> None:
         """One Adam step at the schedule's rate for the current step."""

@@ -13,8 +13,17 @@ train step takes the host's batch as it arrives on the device, (B, H, W,
    backward pass, and one Adam step at the schedule's rate.
 
 Nothing here waits for the card: the stats come back as 0-d tensors.
-The mesh and sharding branch of the JAX step is not ported (one
-device).
+
+Under a process group of more than one rank (`parallel.mesh`, torchrun)
+the step has the JAX mesh step's global-batch semantics: each rank
+brings its slice of the global batch, the augmentation is drawn for the
+global batch, BatchNorm takes global statistics, each loss normalizer
+is global, and `DistributedDataParallel` averages the gradients of the
+ranks' shares of the global loss, scaled by the world size so that the
+average is the global loss's gradient. Every rank then takes the same
+Adam step; the stats are the global values. `make_sharded_forward` is
+the data-parallel inference forward (JAX `steps.py:222-245`); row
+(spatial) partitioning is not ported.
 """
 
 from __future__ import annotations
@@ -28,6 +37,7 @@ from ..ops.decode import split_head_output
 from ..ops.device_augment import device_augment, step_generator
 from ..ops.encode import EncodedTargets, encode_targets
 from ..ops.losses import sdnet_loss
+from ..parallel.mesh import SPATIAL_NOT_PORTED, all_reduce_sum, rank, world_size
 from .state import TrainState
 
 
@@ -40,10 +50,10 @@ def encode_batch(kp: Dict[str, torch.Tensor], config, out_h: int, out_w: int) ->
     )
 
 
-def _loss(outputs, targets, config):
+def _loss(outputs, targets, config, global_sum=None):
     return sdnet_loss(outputs, targets, hm_loss_fn=config.hm_loss_fn,
                       hm_weight=config.hm_weight, offset_weight=config.offset_weight,
-                      embedding_weight=config.embedding_weight)
+                      embedding_weight=config.embedding_weight, global_sum=global_sum)
 
 
 def _grid(images: torch.Tensor, config):
@@ -53,10 +63,11 @@ def _grid(images: torch.Tensor, config):
 
 def train_step(state: TrainState, images: torch.Tensor, kp: Dict[str, torch.Tensor],
                config, *, augment: bool = False) -> Dict[str, torch.Tensor]:
-    """One optimizer step on a batch; `state` advances in place. Returns
-    the loss stats of the batch (0-d float32 tensors)."""
-    model = state.model
+    """One optimizer step on a batch (a rank's slice of the global batch
+    under a process group); `state` advances in place. Returns the loss
+    stats of the (global) batch (0-d float32 tensors)."""
     dtype = config.compute_dtype
+    world = world_size()
     out_h, out_w = _grid(images, config)
     if augment:
         if images.dtype == torch.uint8:
@@ -64,16 +75,20 @@ def train_step(state: TrainState, images: torch.Tensor, kp: Dict[str, torch.Tens
         else:
             images = images.to(dtype)
         images, kp = device_augment(images, kp, step_generator(config.seed, state.step),
-                                    out_w=out_w, out_h=out_h, flip_prob=config.flip_prob)
+                                    out_w=out_w, out_h=out_h, flip_prob=config.flip_prob,
+                                    rank=rank(), world=world)
     targets = encode_batch(kp, config, out_h, out_w)
-    model.train()
+    state.model.train()
+    net = state.step_module()
     x = images.permute(0, 3, 1, 2).contiguous()
     with no_tf32(dtype, images.device):
-        head = model(x, raw_output=True)
+        head = net(x, raw_output=True)
         loss, stats = _loss(split_head_output(head, config.n_labels, config.n_parts),
-                            targets, config)
+                            targets, config, global_sum=all_reduce_sum if world > 1 else None)
         state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        # DDP averages the ranks' gradients: world * the rank's share
+        # makes the average the gradient of the global loss
+        (loss * world if world > 1 else loss).backward()
     state.apply_gradients()
     return {k: v.detach() for k, v in stats.items()}
 
@@ -96,3 +111,36 @@ def eval_step(model: torch.nn.Module, images: torch.Tensor, kp: Dict[str, torch.
         outputs = torch.func.functional_call(model, params, (x,))
     _, stats = _loss(outputs, targets, config)
     return outputs, stats, {"anchor_hm": targets.anchor_hm, "part_hm": targets.part_hm}
+
+
+def make_sharded_forward(model: torch.nn.Module, mesh=None, spatial: bool = False):
+    """Data-parallel inference (JAX `make_sharded_forward`): `forward(images)`
+    takes the whole (B, H, W, 3) normalized batch on every rank, runs the
+    eval-mode model on this rank's contiguous slice, and all-gathers the
+    head outputs, so every rank returns what one forward of the batch
+    gives ('anchor_hm', 'part_hm', 'offsets', 'embeddings'). Without a
+    mesh of more than one rank it is that one forward. B must divide by
+    the ranks. `spatial=True` (image rows over a model axis) raises: row
+    partitioning is not ported."""
+    import torch.distributed as dist
+
+    if spatial:
+        raise NotImplementedError(f"make_sharded_forward(spatial=True): {SPATIAL_NOT_PORTED}")
+    ranks = 1 if mesh is None else mesh.size
+
+    @torch.no_grad()
+    def forward(images: torch.Tensor) -> Dict[str, torch.Tensor]:
+        model.eval()
+        if ranks == 1:
+            return model(images.permute(0, 3, 1, 2).contiguous())
+        b = images.shape[0]
+        if b % ranks:
+            raise ValueError(f"batch {b} does not split over {ranks} ranks")
+        local = b // ranks
+        part = images[mesh.rank * local:(mesh.rank + 1) * local]
+        head = model(part.permute(0, 3, 1, 2).contiguous(), raw_output=True)
+        heads = [torch.empty_like(head) for _ in range(ranks)]
+        dist.all_gather(heads, head)
+        return split_head_output(torch.cat(heads), model.n_labels, model.n_parts)
+
+    return forward

@@ -15,6 +15,16 @@ batch boundary on SIGTERM/SIGINT, a stall watchdog (exit code 87), an
 EMA of the parameters kept outside the state, and a `torch.profiler`
 trace of steps 5-10 (`--profile`). The entry point runs on the card
 unless the caller asks for the CPU.
+
+Data parallelism (JAX `trainer.py:218-222`): under a process group
+started by torchrun (`parallel.mesh`), each rank loads its slice of
+every global batch and the train step has global-batch semantics. Rank
+0 alone (`is_lead`) logs, prints progress and writes: it makes the run
+directory, whose name every rank takes from it, localizes the datasets'
+JSONs before the others read them, saves the state, the EMA and the best
+snapshots. Every rank validates the whole valid set through the
+`Decoder` (kernel A on the card) on its module, and runs the stall
+watchdog; a SIGTERM/SIGINT stops every rank at the same batch boundary.
 """
 
 from __future__ import annotations
@@ -28,6 +38,7 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data.augment import TrainAugmentation, ValidationAugmentation
 from ..data.dataset import CropDataset
@@ -42,12 +53,16 @@ from ..models.weights import (
     load_weights,
     save_msgpack,
 )
+from ..parallel.mesh import create_mesh
 from ..utils import progress, resolve_device
 from .checkpoints import BestModelSaver, CheckpointManager
 from .state import TrainState, create_train_state, make_optimizer
 from .steps import eval_step, train_step
 
 STALL_EXIT_CODE = 87
+# under data parallelism the ranks agree on a stop (SIGTERM/SIGINT) every
+# this many steps and at each epoch's end
+PREEMPT_POLL_STEPS = 10
 
 
 class MetricsWriter:
@@ -227,7 +242,13 @@ class Trainer:
         "cpu" explicitly to train there."""
         self.config = config
         self.device = resolve_device(device)
-        self.log = log
+        # data parallelism: rank 0 owns logging and the files; every rank
+        # loads its slice of each global batch (parallel.multihost)
+        self.mesh = create_mesh(config.data_parallel, config.model_parallel, self.device)
+        self.process_index = self.mesh.rank
+        self.process_count = self.mesh.world
+        self.is_lead = self.process_index == 0
+        self.log = log and self.is_lead
         if config.debug_nans:
             torch.autograd.set_detect_anomaly(True)
 
@@ -239,7 +260,8 @@ class Trainer:
         elif config.pretrained_backbone:
             path = find_imagenet_resnet34(config.backbone)
             load_imagenet_encoder(model, path)
-            print(f"Warm-started encoder from {path}")
+            if self.is_lead:
+                print(f"Warm-started encoder from {path}")
         self.model = model.to(self.device)
 
         self.decoder = Decoder(config)
@@ -248,16 +270,20 @@ class Trainer:
         # data (reference trainer.py:58-87)
         self.train_augmentation = TrainAugmentation(config)
         self.train_set = CropDataset(config, config.train_dir, self.train_augmentation)
-        self.train_set.localize_image_names()
         # --native_io: whole batches through the native library where the
         # host does no per-pixel augmentation, else the per-sample PIL path
         self.train_loader = Loader(
             self.train_set, batch_size=config.batch_size, shuffle=True, drop_last=True,
             num_workers=config.num_workers, seed=config.seed,
-            batch_fetch=choose_batch_fetch(config, self.train_set, self.train_augmentation))
+            batch_fetch=choose_batch_fetch(config, self.train_set, self.train_augmentation),
+            process_index=self.process_index, process_count=self.process_count)
         valid_augmentation = ValidationAugmentation(config)
         self.valid_set = CropDataset(config, config.valid_dir, valid_augmentation)
-        self.valid_set.localize_image_names()
+        if self.is_lead:
+            self.train_set.localize_image_names()
+            self.valid_set.localize_image_names()
+        if self.process_count > 1:  # the JSONs are rewritten before any rank reads one
+            dist.barrier()
         # --eval_batch_size > 1 batches validation; detection metrics are
         # batch-invariant, the reported loss shifts a little because the
         # focal loss normalizes over the batch
@@ -274,8 +300,12 @@ class Trainer:
             if not self.save_dir.is_dir():
                 raise FileNotFoundError(f"resume dir {self.save_dir} not found")
         else:
-            self.save_dir = Path("trainings") / f"{datetime.now():%Y-%m-%d_%H-%M-%S}"
-            self.save_dir.mkdir(parents=True, exist_ok=True)
+            name = [f"{datetime.now():%Y-%m-%d_%H-%M-%S}"]
+            if self.process_count > 1:  # rank 0's clock names the run
+                dist.broadcast_object_list(name, src=0)
+            self.save_dir = Path("trainings") / name[0]
+            if self.is_lead:
+                self.save_dir.mkdir(parents=True, exist_ok=True)
         self.writer = MetricsWriter(self.save_dir / "tb", enabled=self.log)
         self.checkpoints = CheckpointManager(self.save_dir)
         self.best_models = BestModelSaver(self.save_dir)
@@ -293,6 +323,17 @@ class Trainer:
         self._watchdog: Optional[StallWatchdog] = None
         self._first_val_losses: Optional[Dict[str, float]] = None
         self._warned_embedding_plateau = False
+
+    def _stop_agreed(self) -> bool:
+        """Whether a SIGTERM/SIGINT came: this process's flag, or under data
+        parallelism any rank's (a collective: every rank calls it at the
+        same step)."""
+        if self.process_count == 1:
+            return self._preempted
+        flag = torch.tensor([float(self._preempted)], device=self.device)
+        dist.all_reduce(flag)
+        self._preempted = bool(flag.item())
+        return self._preempted
 
     def _param_copy(self) -> Dict[str, torch.Tensor]:
         return {n: p.detach().clone() for n, p in self.model.named_parameters()}
@@ -340,6 +381,8 @@ class Trainer:
         # a long save is progress: the watchdog must not exit mid-write
         if self._watchdog is not None:
             self._watchdog.stop()
+        if not self.is_lead:
+            return
         self.checkpoints.save_state(self.global_step, self.state)
         self._save_ema()
         print(f"Preemption: saved train state at step {self.state.step} to "
@@ -352,7 +395,11 @@ class Trainer:
         model and a fresh optimizer, before the first epoch: cuDNN's and
         the allocator's first use of each of the sizes then happens
         before the stall watchdog is armed, not in a random epoch. The
-        real state is untouched. Returns the number of sizes warmed."""
+        real state is untouched. Returns the number of sizes warmed: 0
+        under data parallelism, as in the JAX package (each rank's first
+        step at a size is then cold)."""
+        if self.process_count > 1:
+            return 0
         cfg = self.config
         aug = self.train_augmentation
         sizes = [aug.current_size] + [s for s in aug.bucket_sizes() if s != aug.current_size]
@@ -382,8 +429,9 @@ class Trainer:
             # skip the epochs already done: the run ends at --epochs total
             steps_per_epoch = max(1, len(self.train_loader))
             start_epoch = min(self.state.step // steps_per_epoch, self.config.epochs)
-            print(f"Resumed from step {self.state.step} "
-                  f"(epoch {start_epoch}/{self.config.epochs})", flush=True)
+            if self.is_lead:
+                print(f"Resumed from step {self.state.step} "
+                      f"(epoch {start_epoch}/{self.config.epochs})", flush=True)
             if start_epoch > 0:
                 # the size the unbroken run rolled for this epoch
                 self.train_augmentation.trigger_random_resize(start_epoch)
@@ -397,16 +445,18 @@ class Trainer:
             if self.config.stall_timeout_s > 0:
                 self._watchdog = StallWatchdog(self.config.stall_timeout_s).start()
             epochs = range(start_epoch, self.config.epochs)
-            for epoch in progress(epochs, len(epochs), "Training epochs", every=1):
+            for epoch in progress(epochs, len(epochs), "Training epochs", every=1,
+                                  show=self.is_lead):
                 self._current_epoch = epoch
                 self.train_epoch(epoch)
-                if self._preempted:
+                if self._stop_agreed():
                     self._preemption_save()
                     return
                 if epoch % 2 == 0:
                     self.valid()
-                self.checkpoints.save_state(self.global_step, self.state)
-                self._save_ema()
+                if self.is_lead:
+                    self.checkpoints.save_state(self.global_step, self.state)
+                    self._save_ema()
                 if self._watchdog is not None:
                     self._watchdog.beat()
                 self.writer.flush()
@@ -414,8 +464,9 @@ class Trainer:
                     malloc_trim()
             # the conditional policy can freeze a "best" snapshot on an
             # early one-off metric: say so
-            for line in self.best_models.staleness_report(self._current_epoch):
-                print(line)
+            if self.is_lead:
+                for line in self.best_models.staleness_report(self._current_epoch):
+                    print(line)
         finally:
             if self._watchdog is not None:
                 self._watchdog.stop()
@@ -447,11 +498,12 @@ class Trainer:
         # replays the unbroken run's batches
         self.train_loader.set_epoch(epoch)
         augment = self.train_augmentation.device_augment
-        profile_this = cfg.profile and not self._profiled
+        profile_this = cfg.profile and not self._profiled and self.is_lead
         prof = None
 
         batches = device_prefetch(
-            progress(self.train_loader, len(self.train_loader), f"Epoch {epoch}"), self.device)
+            progress(self.train_loader, len(self.train_loader), f"Epoch {epoch}",
+                     show=self.is_lead), self.device)
         # The stats are read on the host (a wait for the card) every 10th
         # step and whenever a third of the watchdog's timeout has passed:
         # a beat must witness a completed step, and a wait every step
@@ -479,7 +531,12 @@ class Trainer:
                 if wd is not None:
                     wd.beat()
             self.global_step += cfg.batch_size
-            if self._preempted:  # SIGTERM/SIGINT: stop at the batch boundary
+            # SIGTERM/SIGINT: stop at the batch boundary (the ranks agree
+            # on one every PREEMPT_POLL_STEPS steps)
+            if self.process_count == 1 and self._preempted:
+                break
+            if self.process_count > 1 and i % PREEMPT_POLL_STEPS == PREEMPT_POLL_STEPS - 1 \
+                    and self._stop_agreed():
                 break
         if prof is not None:  # an epoch shorter than 11 batches
             self._stop_profile(prof)
@@ -499,7 +556,8 @@ class Trainer:
         n = 0
         last = None
         batches = device_prefetch(
-            progress(self.valid_loader, len(self.valid_loader), "Validation"), self.device)
+            progress(self.valid_loader, len(self.valid_loader), "Validation",
+                     show=self.is_lead), self.device)
         for batch in batches:
             outputs, stats, gt_maps = eval_step(self.model, batch["image"], batch["keypoints"],
                                                 cfg, params=self.ema_params)
@@ -521,6 +579,8 @@ class Trainer:
 
         loss_avg = {k: v / max(n, 1) for k, v in loss_sums.items()}
         summary = self.evaluator.scalar_summary()
+        if not self.is_lead:  # every rank validated the same set: rank 0 writes
+            return summary
         self._check_embedding_plateau(loss_avg)
         self.best_models.update(
             self._weights(),

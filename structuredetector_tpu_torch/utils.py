@@ -3,6 +3,7 @@ native builds live in."""
 
 from __future__ import annotations
 
+import os
 from pathlib import Path
 
 import torch
@@ -30,25 +31,29 @@ def set_build_dir(path) -> None:
 
 def resolve_device(device="cuda") -> torch.device:
     """`device` as a `torch.device`. A CUDA device on a host without CUDA
-    raises: the port never moves to the CPU unless the caller asks."""
+    raises: the port never moves to the CPU unless the caller asks. Under
+    torchrun, "cuda" without an index is the rank's card,
+    `cuda:(LOCAL_RANK % device_count)`."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "CUDA is not available on this host; pass device='cpu' "
             "(--device cpu) to run the port on the CPU"
         )
+    if device.type == "cuda" and device.index is None and "LOCAL_RANK" in os.environ:
+        device = torch.device("cuda", int(os.environ["LOCAL_RANK"]) % torch.cuda.device_count())
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"the port runs on 'cuda' or 'cpu', not {device}")
     return device
 
 
-def progress(iterable, total: int, desc: str, every: int = 10):
+def progress(iterable, total: int, desc: str, every: int = 10, show: bool = True):
     """Yield from `iterable`, printing `desc: i/total` to stderr at the
     first item, then every `every` items and at the last (plain lines:
-    the port needs no tqdm)."""
+    the port needs no tqdm); nothing is printed unless `show`."""
     import sys
 
     for i, item in enumerate(iterable, start=1):
         yield item
-        if i == 1 or i % every == 0 or i == total:
+        if show and (i == 1 or i % every == 0 or i == total):
             print(f"{desc}: {i}/{total}", file=sys.stderr, flush=True)

@@ -217,6 +217,37 @@ def test_train_step_on_card_matches_cpu():
 
 
 @pytest.mark.cuda
+def test_two_rank_train_step_on_card(tmp_path):
+    """Data parallelism on the card: two ranks (gloo when they share one
+    card, NCCL with a card each) run 3 fp32 steps with device augmentation
+    at 32x32 on their halves of a global batch of 8 whose keypoint counts
+    differ by rank (tests/torch_port_parallel_worker.py), against one
+    process on the joined batch on the card. The ranks end identical; the
+    first loss within 1e-4 (cuDNN may pick other fp32 algorithms at batch
+    4 than at 8), the trajectory within 1e-3, the parameters within
+    Adam's bound of 2 * lr a step (a noise-level gradient may take either
+    sign, tests/test_torch_port_parallel.py)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    # the tests directory is on sys.path (pytest's rootdir-less import);
+    # a `tests` package elsewhere on the card host may shadow `tests.`
+    from torch_port_parallel_worker import small_config, start_ranks, step_run
+
+    parts = [p["augment"] for p in start_ranks(tmp_path, "step", device="cuda")()]
+    cfg = small_config()
+    want = step_run(cfg, "augment", "cuda")
+    assert parts[0]["fingerprint"] == parts[1]["fingerprint"]
+    got = parts[0]
+    assert abs(got["losses"][0] - want["losses"][0]) <= 1e-4 * abs(want["losses"][0])
+    np.testing.assert_allclose(got["losses"], want["losses"], rtol=1e-3)
+    for key, value in want["state"].items():
+        if key.endswith(("running_mean", "running_var", "num_batches_tracked")):
+            continue
+        gap = float((got["state"][key] - value).abs().max())
+        assert gap <= 2 * cfg.learning_rate * len(want["losses"]), key
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shape,cout,k", [((2, 64, 64, 64), 64, 3), ((1, 16, 16, 512), 512, 3),
                                           ((2, 32, 32, 128), 256, 1), ((1, 2, 2, 512), 512, 3),
                                           ((1, 4, 4, 256), 256, 1), ((1, 3, 5, 12), 20, 3)])
