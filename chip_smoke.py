@@ -25,7 +25,9 @@ of JAX or of the JAX package. Phases, one JSON line each:
    timed card sampled beside the window;
    with `--parent DIR` (a checkout of another commit), also that
    checkout's kernels A, B and C, called through its own public
-   wrappers, against these, in turns (old, new, new, old);
+   wrappers, against these, in turns (old, new, new, old), and its
+   seeded full-width SDNet's forward (and one train-mode backward)
+   bit for bit against this checkout's;
 4. serve (main path of kernels A and B): a full-width SDNet (resnet34,
    fpn_depth 128, 512x512, bf16, labels.json) behind the port's
    micro-batching HTTP server answers concurrent PNG POSTs; the Decoder
@@ -99,6 +101,24 @@ of JAX or of the JAX package. Phases, one JSON line each:
    launched on each rank, `cli.evaluate` on its checkpoint); a one-rank
    NCCL group's all_reduce, and the 2-rank step on NCCL where there are
    two cards;
+10c. model_axis (the mesh's model axis; main path of kernel A on every
+   rank and of kernel B on the row forward's gathered maps): ranks share
+   the card over gloo at full width (resnet34, fpn_depth 128, 512x512,
+   labels.json, seeded weights, fp32 with TF32 off): the 1 x 2
+   tensor-parallel step (`--model_parallel 2`) for 3 steps at global
+   batch 4 against one process (the first step's loss, gradient and BN
+   statistics, the parameters within Adam's bound, each rank's elements
+   against the rule of JAX's `param_shardings`, ms a step, peak memory a
+   rank); `make_sharded_forward(spatial=True)` over 1 x 4 rows at batch 2
+   against one forward (heads within 1e-4 of their scale, anchor F1 of
+   the two decodes, kernel B on every rank's gathered maps); the 2 x 2
+   spatial step's first step against the same one process and a float64
+   step, then again with each `MA_FAULTS` fault planted in its backward,
+   which the same gradient bar must refuse; `torchrun
+   --nproc_per_node 2 -m structuredetector_tpu_torch.cli.train
+   --model_parallel 2` for 2 epochs on the train phase's 64 + 16 PNGs
+   (rank 0 alone writes, kernel A launched on each rank, `cli.evaluate`
+   on its checkpoint in one process);
 11. variants (main path of kernels A and B for the model variants): at
    full width (512x512, fpn_depth 128, bf16, labels.json, seeded
    weights) resnet18, resnet50, resnet34 with `--s2d_stem` and with
@@ -554,8 +574,51 @@ def phase_parent(card: str, parent: Path) -> dict:
                               "new_ms": sum(runs["new"]) / 2}
     emit({"phase": "parent", "card": card, "parent": str(parent),
           "timed_work": "batch-32 work as in the kernels phase, in turns old, new, new, old",
+          "forward_bit_equal": _forward_against_parent(),
           "clocks": clocks, **result})
     return result
+
+
+def _forward_against_parent() -> dict:
+    """The parent checkout's seeded full-width SDNet (512x512, fpn_depth
+    128, labels.json) against this one's on one batch of 2, cuDNN
+    deterministic: each variant's eval-mode head output, and resnet34
+    bf16's train-mode head output and parameter gradients, bit for bit.
+    Raises where they differ."""
+    import importlib
+
+    import torch
+
+    from structuredetector_tpu_torch.config import Config
+    from structuredetector_tpu_torch.models import network as new
+
+    old = importlib.import_module("sdnet_parent.models.network")
+    x = torch.randn(2, 3, 512, 512, generator=torch.Generator().manual_seed(5)).cuda()
+    variants = {"resnet34 bf16": {}, "resnet34 fp32": dict(use_amp=False),
+                "resnet50 bf16": dict(backbone="resnet50"),
+                "resnet34 s2d bf16": dict(s2d_stem=True),
+                "resnet34 head_conv64 bf16": dict(head_conv=64)}
+    equal = {}
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True):
+        for name, overrides in variants.items():
+            cfg = Config(labels_path=ROOT / "labels.json", **overrides).finalize()
+            outs = []
+            for mod in (old, new):
+                with torch.no_grad():
+                    outs.append(mod.init_model(cfg).cuda()(x, raw_output=True))
+            equal[name] = torch.equal(*outs)
+        cfg = Config(labels_path=ROOT / "labels.json").finalize()
+        runs = []
+        for mod in (old, new):
+            model = mod.init_model(cfg).cuda().train()
+            y = model(x, raw_output=True)
+            y.square().mean().backward()
+            runs.append([y.detach(), *(p.grad for p in model.parameters())])
+        equal["resnet34 bf16 train: head and gradients"] = all(
+            torch.equal(a, b) for a, b in zip(*runs))
+    if not all(equal.values()):
+        raise AssertionError(f"this checkout's forward departs from the parent's: {equal}")
+    return equal
 
 
 def _png(rng, w: int, h: int) -> bytes:
@@ -2050,9 +2113,10 @@ def _dp_cli_rank(out: Path, argv) -> None:
     (out / f"launches{rank}.json").write_text(json.dumps(launch_counts()))
 
 
-def _run_ranks(tmp: Path, world: int, timeout_s: float = 300) -> list:
-    """`world` processes of `_dp_rank` with torchrun's environment, one
-    host, ranks cuda:(LOCAL_RANK % device_count); their results by rank."""
+def _run_ranks(tmp: Path, world: int, timeout_s: float = 300, case: str = None) -> list:
+    """`world` processes of `_dp_rank` (or of `_ma_rank`'s `case`) with
+    torchrun's environment, one host, ranks cuda:(LOCAL_RANK %
+    device_count); their results by rank."""
     import subprocess
 
     import torch
@@ -2063,7 +2127,8 @@ def _run_ranks(tmp: Path, world: int, timeout_s: float = 300) -> list:
         env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world), LOCAL_RANK=str(r),
                    LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1", MASTER_PORT=port)
         procs.append(subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
-                                       "--dp_rank_out", str(tmp / f"rank{r}.pt")],
+                                       "--dp_rank_out", str(tmp / f"rank{r}.pt"),
+                                       *(["--ma_case", case] if case else [])],
                                       env=env, stdout=subprocess.PIPE,
                                       stderr=subprocess.PIPE, text=True))
     failures = []
@@ -2078,7 +2143,7 @@ def _run_ranks(tmp: Path, world: int, timeout_s: float = 300) -> list:
                 proc.kill()
                 proc.communicate()
     if failures:
-        raise AssertionError("data_parallel step: " + "\n".join(failures))
+        raise AssertionError(f"{case or 'data_parallel'} ranks: " + "\n".join(failures))
     return [torch.load(tmp / f"rank{r}.pt", weights_only=False) for r in range(world)]
 
 
@@ -2254,6 +2319,401 @@ def phase_data_parallel(card: str) -> dict:
           "nccl_one_rank_all_reduce": nccl_ok, "nccl_version": nccl_version,
           "nccl_multi_card": nccl_multi, "launches": total,
           "seconds": time.perf_counter() - t_phase})
+    return total
+
+
+MA_GLOBAL_BATCH = 4
+MA_STEPS = 3
+MA_ROW_BATCH = 2
+
+
+def _as_float64(module, args):
+    return (args[0].double(), *args[1:])
+
+
+def _ma_steps(cfg, mesh, spatial: bool, steps: int, float64: bool = False) -> dict:
+    """`steps` fp32 train steps (device augmentation, uint8 feed) of the
+    seeded model on `mesh` (None: one process), each rank on its data
+    index's slice of a global batch of MA_GLOBAL_BATCH, the model sharded
+    over the model axis unless `spatial` (rows over it then): the losses,
+    the gradient and BN statistics after step 1 and the state after the
+    last, whole, on the CPU; ms a step (host clock over steps 2 on,
+    synchronized), the peak memory of this process, the parameter and
+    BN-statistic elements this rank holds and their share by the rule.
+    `float64`: one process with the network in float64 (the augmented
+    batch cast to it, the loss in float32), the yardstick of float32's
+    reduction orders."""
+    import torch
+
+    from structuredetector_tpu_torch.models.network import init_model
+    from structuredetector_tpu_torch.parallel.mesh import shards_on_cout
+    from structuredetector_tpu_torch.parallel.partition import shard_model
+    from structuredetector_tpu_torch.train.state import create_train_state
+    from structuredetector_tpu_torch.train.steps import train_step
+
+    torch.cuda.reset_peak_memory_stats()
+    images, kp = _train_batch(cfg, MA_GLOBAL_BATCH, seed=13, normalized=False)
+    index, ranks = (mesh.data_index, mesh.data) if mesh is not None else (0, 1)
+    local = MA_GLOBAL_BATCH // ranks
+    part = slice(index * local, (index + 1) * local)
+    images, kp = images[part].contiguous(), {k: v[part].contiguous() for k, v in kp.items()}
+    model = init_model(cfg).cuda()
+    model_size = mesh.model if mesh is not None and not spatial else 1
+    params = dict(model.named_parameters())
+    share = {"params": 0, "batch_stats": 0}
+    for name, t in model.state_dict().items():
+        if name.endswith("num_batches_tracked"):
+            continue
+        split = shards_on_cout(name, tuple(t.shape), model_size)
+        share["params" if name in params else "batch_stats"] += \
+            t.numel() // (model_size if split else 1)
+    plan = shard_model(model, mesh) if model_size > 1 else None
+    if float64:
+        model.double().register_forward_pre_hook(_as_float64)
+    whole = plan.full_state_dict if plan is not None else dict
+    state = create_train_state(cfg, model, steps_per_epoch=1000, partition=plan)
+    out = {"losses": [], "elements_expected": share, "elements": {
+        "params": sum(p.numel() for p in model.parameters()),
+        "batch_stats": sum(b.numel() for n, b in model.named_buffers()
+                           if n.endswith(("running_mean", "running_var")))}}
+    for i in range(steps):
+        if i == 1:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        out["losses"].append(float(train_step(state, images, kp, cfg, augment=True, mesh=mesh,
+                                              spatial=spatial)["total_loss"]))
+        if i == 0:
+            grad = whole({n: p.grad.detach() for n, p in model.named_parameters()})
+            out["grad1"] = {k: v.float().cpu() for k, v in grad.items()}
+            stats = whole({n: b.detach().clone() for n, b in model.named_buffers()
+                           if n.endswith(("running_mean", "running_var"))})
+            out["stats1"] = {k: v.float().cpu() for k, v in stats.items()}
+    torch.cuda.synchronize()
+    if steps > 1:
+        out["ms_per_step"] = (time.perf_counter() - t0) * 1e3 / (steps - 1)
+    out["state"] = {k: v.cpu() for k, v in state.state_dict()["model"].items()}
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def _dropped_halo_grad(ctx, g):
+    """`_Halo.backward` that drops the halo rows' gradients instead of
+    returning them to the ranks that own those rows."""
+    return g.narrow(2, ctx.top, ctx.h).contiguous(), None, None, None, None
+
+
+def _summed_gather_grad(ctx, g):
+    """`_Gather.backward` that always sums over the group: where every rank
+    holds the same whole gradient (the gathered head output) it scales
+    the gradient by the ranks' count."""
+    from structuredetector_tpu_torch.parallel import partition
+
+    g = partition._summed(g, ctx.plan.group)
+    return g.narrow(ctx.dim, ctx.plan.index * ctx.local, ctx.local), None, None, None
+
+
+# faults planted in the spatial backward, which (c)'s gradient bar must
+# refuse: (the autograd Function of parallel.partition, its wrong backward)
+MA_FAULTS = {"dropped_halo_grad": ("_Halo", _dropped_halo_grad),
+             "summed_gather_grad": ("_Gather", _summed_gather_grad)}
+
+
+def _ma_forward_batch(cfg):
+    """The row forward's ImageNet-normalized (B, H, W, 3) batch on the card."""
+    return _train_batch(cfg, MA_ROW_BATCH, seed=17, normalized=True)[0].contiguous()
+
+
+def _ma_decode(maps, cfg):
+    from structuredetector_tpu_torch.ops.decode import decode_feature_maps_planes
+
+    return decode_feature_maps_planes(maps, max_objects=cfg.max_objects,
+                                      max_parts=cfg.max_parts, conf_thresh=cfg.conf_threshold,
+                                      dist_thresh=cfg.decoder_dist_thresh)
+
+
+def _ma_rank(out: Path, case: str) -> None:
+    """One rank of the model_axis phase, joined from torchrun's environment:
+    "tp" (2 ranks) the 1 x 2 tensor-parallel steps; "rows" (4 ranks) the
+    1 x 4 row forward at batch MA_ROW_BATCH and the decode of its gathered
+    maps (kernel B, counted from 0 here), then the 2 x 2 spatial step,
+    clean and with each `MA_FAULTS` fault planted."""
+    import torch
+    import torch.distributed as dist
+
+    from structuredetector_tpu_torch.models.network import init_model
+    from structuredetector_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from structuredetector_tpu_torch.parallel import partition
+    from structuredetector_tpu_torch.parallel.mesh import create_mesh, maybe_initialize_distributed
+    from structuredetector_tpu_torch.train.steps import make_sharded_forward
+
+    if not maybe_initialize_distributed("cuda"):
+        raise RuntimeError("no torchrun environment")
+    cfg = _dp_config()
+    result = {"backend": dist.get_backend(), "device": str(torch.cuda.current_device())}
+    if case == "tp":
+        result.update(_ma_steps(cfg, create_mesh(1, 2, "cuda"), False, MA_STEPS))
+    elif case == "rows":
+        images = _ma_forward_batch(cfg)
+        forward = make_sharded_forward(init_model(cfg).cuda(), create_mesh(1, 4, "cuda"),
+                                       spatial=True)
+        maps = forward(images)  # cuDNN's first use of each shape
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            maps = forward(images)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        reset_launch_counts()
+        decoded = _ma_decode(maps, cfg)
+        torch.cuda.synchronize()
+        result.update(forward_ms=sorted(times)[len(times) // 2], forward_ms_runs=times,
+                      launches=launch_counts(),
+                      maps={k: v.cpu() for k, v in maps.items()},
+                      decoded={k: v.cpu() for k, v in decoded.items()})
+        grid = create_mesh(2, 2, "cuda")
+        result["spatial"] = _ma_steps(cfg, grid, True, 1)
+        for fault, (name, backward) in MA_FAULTS.items():
+            fn = getattr(partition, name)
+            right = fn.__dict__["backward"]
+            fn.backward = staticmethod(backward)
+            try:
+                result[fault] = _ma_steps(cfg, grid, True, 1)
+            finally:
+                fn.backward = right
+    else:
+        raise SystemExit(f"unknown model_axis case {case}")
+    if dist.get_rank():  # the whole tensors are compared on rank 0's copy
+        for run in (result, *(result.get(k, {}) for k in ("spatial", *MA_FAULTS))):
+            for key in ("grad1", "state", "maps"):
+                run.pop(key, None)
+    dist.destroy_process_group()
+    torch.save(result, out)
+
+
+def _anchor_f1(a: dict, b: dict) -> float:
+    """F1 of the anchors of two decodes of the same images: the K anchors
+    of each image (x, y, score, label), one matched to one of the same
+    label within half a grid cell."""
+    tp = n = 0
+    for x, y in zip(a["anchors"], b["anchors"]):
+        free = [True] * len(y)
+        for ax, ay, _, al in x.tolist():
+            for j, (bx, by, _, bl) in enumerate(y.tolist()):
+                if free[j] and al == bl and (ax - bx) ** 2 + (ay - by) ** 2 <= 0.25:
+                    free[j] = False
+                    tp += 1
+                    break
+        n += len(x) + len(y)
+    return 2 * tp / max(n, 1)
+
+
+def _ma_grad_gap(got: dict, want: dict):
+    """max |got - want| over the gradient's largest element, and the tensor
+    where it is."""
+    scale = max(float(g.abs().max()) for g in want.values())
+    gaps = {k: float((got[k] - v).abs().max()) / scale for k, v in want.items()}
+    worst = max(gaps, key=gaps.get)
+    return gaps[worst], worst
+
+
+def _ma_first_step(got: dict, one: dict, f64: dict) -> dict:
+    """A mesh run's first step and parameters against one process's, and
+    both first-step gradients against the float64 one's."""
+    params = list(one["grad1"])
+    gap, worst = _ma_grad_gap(got["grad1"], one["grad1"])
+    return {
+        "step0_loss_rel_gap": abs(got["losses"][0] - one["losses"][0]) / abs(one["losses"][0]),
+        "step1_grad_gap_of_largest": gap, "step1_grad_worst": worst,
+        "step1_grad_gap_to_float64": _ma_grad_gap(got["grad1"], f64["grad1"])[0],
+        "one_process_grad_gap_to_float64": _ma_grad_gap(one["grad1"], f64["grad1"])[0],
+        "step1_bn_stats_max_rel_gap": _rel_gap(got["stats1"], one["stats1"], one["stats1"]),
+        "params_max_abs_gap": max(float((got["state"][k] - one["state"][k]).abs().max())
+                                  for k in params),
+    }
+
+
+def _ma_grad_bar(step: dict) -> float:
+    """(c)'s gradient bar against the float64 step: 1e-4, or twice one
+    process's own distance from it (PERF.md §6: split BN sums and other
+    cuDNN shapes reorder float32 sums)."""
+    return max(1e-4, 2 * step["one_process_grad_gap_to_float64"])
+
+
+def phase_model_axis(card: str) -> dict:
+    """The mesh's model axis on the one card, ranks sharing it over gloo,
+    launched with torchrun's environment, at full width (resnet34,
+    fpn_depth 128, 512x512, labels.json, seeded weights, fp32 with TF32
+    off): (a) the 1 x 2 tensor-parallel step (`--model_parallel 2`'s),
+    MA_STEPS steps at global batch 4 against one process on the same
+    batch, with each rank's parameter elements against the rule of JAX's
+    `param_shardings`, ms a step and peak memory a rank; (b) the row
+    forward, `make_sharded_forward(spatial=True)` over 1 x 4 rows at batch
+    2, against one forward (heads within 1e-4 of their scale), its
+    gathered maps decoded through kernel B on every rank (anchor F1 of
+    the two decodes at least 0.99); (c) the 2 x 2 spatial step's first
+    step against the one process of (a) and a float64 step, and with
+    each `MA_FAULTS` fault planted, which its gradient bar must refuse;
+    (d) `torchrun --nproc_per_node 2
+    -m structuredetector_tpu_torch.cli.train --model_parallel 2` for 2
+    epochs of the train phase's 64 + 16 PNGs: kernel A launched on each
+    rank in validation, rank 0 alone writing, `cli.evaluate` loading its
+    `model_best_loss.msgpack` in one process. Returns the ranks' kernel
+    launches of the main paths, (b)'s decode and (d), summed."""
+    import subprocess
+
+    import torch
+
+    from structuredetector_tpu_torch.cli import evaluate
+    from structuredetector_tpu_torch.models.network import init_model
+
+    t_phase = time.perf_counter()
+    labels = ROOT / "labels.json"
+    cfg = _dp_config()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="sdnet-ma-") as tmp:
+        tmp = Path(tmp)
+        # (a) the tensor-parallel step, then one process
+        t0 = time.perf_counter()
+        tp = _run_ranks(tmp, 2, case="tp")
+        tp_s = time.perf_counter() - t0
+        one = _ma_steps(cfg, None, False, MA_STEPS)
+        f64 = _ma_steps(cfg, None, False, 1, float64=True)
+        step = _ma_first_step(tp[0], one, f64)
+        step.update({
+            "ranks_identical": tp[0]["losses"] == tp[1]["losses"],
+            "losses_2_ranks": tp[0]["losses"], "losses_1_process": one["losses"],
+            "adam_bound": 2 * cfg.learning_rate * MA_STEPS,
+            "elements_by_rank": [r["elements"] for r in tp],
+            "elements_expected": [r["elements_expected"] for r in tp],
+            "elements_1_process": one["elements"],
+            "ms_per_step_2_ranks_sharing_one_card": [r["ms_per_step"] for r in tp],
+            "ms_per_step_1_process": one["ms_per_step"],
+            "peak_gb_by_rank": [r["peak_gb"] for r in tp], "peak_gb_1_process": one["peak_gb"],
+            "backends": [r["backend"] for r in tp], "ranks_wall_s": tp_s})
+        del tp
+        emit({"phase": "model_axis", "part": "a_tensor_parallel_step", "card": card,
+              "model": f"SDNet resnet34 fpn_depth={cfg.fpn_depth} {cfg.width}x{cfg.height} fp32 "
+                       f"(TF32 off), 1 data x 2 model, global batch {MA_GLOBAL_BATCH}, "
+                       f"{MA_STEPS} steps, device augment (uint8 feed), seeded init",
+              "timing": "host clock over steps 2-3, synchronized; 2 ranks sharing one card "
+                        "over gloo, not a scaling figure", **step})
+        # bars stated in PERF.md before the first run
+        bad = {k: step[k] for k, bar in (("step0_loss_rel_gap", 1e-4),
+                                         ("step1_grad_gap_of_largest", 1e-4),
+                                         ("step1_bn_stats_max_rel_gap", 1e-4),
+                                         ("params_max_abs_gap", step["adam_bound"]))
+               if not step[k] <= bar}
+        if bad or not step["ranks_identical"] or step["backends"] != ["gloo", "gloo"]:
+            raise AssertionError(f"the tensor-parallel step departs from one process: {bad}, "
+                                 f"{step['ranks_identical']}, {step['backends']}")
+        if step["elements_by_rank"] != step["elements_expected"] \
+                or step["elements_by_rank"][0]["params"] >= one["elements"]["params"]:
+            raise AssertionError(f"a rank's elements are not JAX's share: {step}")
+
+        # (b) and (c): four ranks, the row forward then the spatial step
+        t0 = time.perf_counter()
+        rows = _run_ranks(tmp, 4, case="rows")
+        rows_s = time.perf_counter() - t0
+        images = _ma_forward_batch(cfg)
+        model = init_model(cfg).cuda().eval()
+        with torch.no_grad():
+            want = model(images.permute(0, 3, 1, 2).contiguous())
+            times = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                want = model(images.permute(0, 3, 1, 2).contiguous())
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t1) * 1e3)
+        want = {k: v.cpu() for k, v in want.items()}
+        one_decoded = {k: v.cpu() for k, v in _ma_decode({k: v.cuda() for k, v in want.items()},
+                                                         cfg).items()}
+        del model
+        got = rows[0]["maps"]
+        head_gap = max(float((got[k] - v).abs().max() / v.abs().max()) for k, v in want.items())
+        f1 = [_anchor_f1(r["decoded"], one_decoded) for r in rows]
+        row_launches = [r["launches"] for r in rows]
+        spatial = _ma_first_step(rows[0]["spatial"], one, f64)
+        spatial["ranks_identical"] = len({tuple(r["spatial"]["losses"]) for r in rows}) == 1
+        grad_bar = _ma_grad_bar(spatial)
+        faults = {f: _ma_first_step(rows[0][f], one, f64)["step1_grad_gap_to_float64"]
+                  for f in MA_FAULTS}
+        emit({"phase": "model_axis", "part": "b_row_forward_c_spatial_step", "card": card,
+              "row_forward": {"mesh": "1 data x 4 rows", "batch": MA_ROW_BATCH,
+                              "head_max_gap_of_scale": head_gap, "anchor_f1_by_rank": f1,
+                              "ms_median_of_5": [r["forward_ms"] for r in rows],
+                              "ms_runs_rank0": rows[0]["forward_ms_runs"],
+                              "ms_1_process_fp32": sorted(times)[2],
+                              "launches_by_rank": row_launches},
+              "spatial_step": {"mesh": "2 data x 2 rows", "global_batch": MA_GLOBAL_BATCH,
+                               "peak_gb_by_rank": [r["spatial"]["peak_gb"] for r in rows],
+                               "grad_bar_to_float64": grad_bar,
+                               "planted_faults_grad_gap_to_float64": faults, **spatial},
+              "ranks_wall_s": rows_s,
+              "timing": "host clock, synchronized, median of 5 after one warm-up; 4 ranks "
+                        "sharing one card over gloo, not a scaling figure"})
+        if head_gap > 1e-4 or min(f1) < 0.99:
+            raise AssertionError(f"the row forward departs from one forward: {head_gap}, {f1}")
+        if not all(c["sigmoid_nms_topk"] for c in row_launches):
+            raise AssertionError(f"kernel B not launched on every rank: {row_launches}")
+        bad = {k: spatial[k] for k, bar in (("step0_loss_rel_gap", 1e-4),
+                                            ("step1_grad_gap_to_float64", grad_bar),
+                                            ("step1_bn_stats_max_rel_gap", 1e-4))
+               if not spatial[k] <= bar}
+        if bad or not spatial["ranks_identical"]:
+            raise AssertionError(f"the spatial step departs from one process: {bad}, "
+                                 f"{spatial['ranks_identical']}")
+        if not all(gap > grad_bar for gap in faults.values()):
+            raise AssertionError(f"(c)'s bar {grad_bar} passes a planted fault: {faults}")
+        del rows, one, f64
+
+        # (d) cli.train --model_parallel 2 under torchrun
+        _write_annotated(tmp / "train", 64, seed=1)
+        _write_annotated(tmp / "valid", 16, seed=2)
+        cli = tmp / "cli"
+        for r in (0, 1):
+            (cli / f"cwd{r}").mkdir(parents=True)
+        argv = ["--model_parallel", "2", "--train_dir", str(tmp / "train"), "--valid_dir",
+                str(tmp / "valid"), "--labels", str(labels), "--epochs", "2",
+                "--eval_batch_size", "16", "--num_workers", "4"]
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                               "--nproc_per_node", "2", str(ROOT / "chip_smoke.py"),
+                               "--dp_cli_out", str(cli), "--", *argv],
+                              capture_output=True, text=True, timeout=400)
+        cli_s = time.perf_counter() - t0
+        if proc.returncode:
+            raise AssertionError(f"torchrun cli.train --model_parallel 2: exit "
+                                 f"{proc.returncode}\n{proc.stderr[-3000:]}")
+        launches = [json.loads((cli / f"launches{r}.json").read_text()) for r in (0, 1)]
+        written = {r: sorted(str(p.relative_to(cli / f"cwd{r}"))
+                             for p in (cli / f"cwd{r}").iterdir()) for r in (0, 1)}
+        runs = list((cli / "cwd0" / "trainings").iterdir())
+        snapshot = runs[0] / "model_best_loss.msgpack" if len(runs) == 1 else None
+        if written[1] or written[0] != ["trainings"] or snapshot is None \
+                or not snapshot.exists():
+            raise AssertionError(f"only rank 0 writes one run: {written}, {runs}")
+        if not all(counts["sigmoid_nms"] for counts in launches):
+            raise AssertionError(f"kernel A not launched on each rank: {launches}")
+        with contextlib.redirect_stdout(io.StringIO()):
+            evaluators = evaluate.main([
+                "--valid_dir", str(tmp / "valid"), "--labels", str(labels), "--load_model",
+                str(snapshot), "--eval_batch_size", "16",
+                "--save_summary", str(tmp / "summary.json")])
+        summary = json.loads((tmp / "summary.json").read_text())
+        if not evaluators or not all(math.isfinite(v) for v in summary.values()):
+            raise AssertionError(f"cli.evaluate on the --model_parallel 2 checkpoint: {summary}")
+    total = {k: sum(c[k] for c in launches + row_launches) for k in launches[0]}
+    emit({"phase": "model_axis", "part": "d_cli_train", "card": card,
+          "cli_train": {"command": "torchrun --standalone --nproc_per_node 2 -m "
+                                   "structuredetector_tpu_torch.cli.train --model_parallel 2",
+                        "train_images": 64, "valid_images": 16, "epochs": 2,
+                        "global_batch_size": 8, "wall_s": cli_s,
+                        "written_by_rank": written, "launches_by_rank": launches},
+          "evaluate_summary": {k: summary[k] for k in ("anchor/f1_total", "kps/f1_total")},
+          "launches": total, "seconds": time.perf_counter() - t_phase})
     return total
 
 
@@ -2584,6 +3044,7 @@ def main(argv=None) -> int:
     # of cli.train under torchrun (its arguments after --)
     p.add_argument("--dp_rank_out", type=Path, default=None, help=argparse.SUPPRESS)
     p.add_argument("--dp_cli_out", type=Path, default=None, help=argparse.SUPPRESS)
+    p.add_argument("--ma_case", default=None, help=argparse.SUPPRESS)
     p.add_argument("cli_argv", nargs="*", help=argparse.SUPPRESS)
     args = p.parse_args(argv)
 
@@ -2597,7 +3058,10 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     if args.dp_rank_out is not None:
-        _dp_rank(args.dp_rank_out)
+        if args.ma_case:
+            _ma_rank(args.dp_rank_out, args.ma_case)
+        else:
+            _dp_rank(args.dp_rank_out)
         return 0
     if args.dp_cli_out is not None:
         _dp_cli_rank(args.dp_cli_out, args.cli_argv)
@@ -2628,6 +3092,7 @@ def main(argv=None) -> int:
     phase_reference(card)
     by_path["train"] = phase_train(card)
     by_path["data_parallel"] = phase_data_parallel(card)
+    by_path["model_axis"] = phase_model_axis(card)
     with tempfile.TemporaryDirectory(prefix="sdnet-variants-") as work:
         by_path["variants"], variant_ms = phase_variants(card, Path(work))
     forward_ms["resnet50 bf16"] = variant_ms["resnet50"]

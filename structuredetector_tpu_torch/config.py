@@ -5,9 +5,9 @@ reference's flag names, defaults and invariants
 (`/root/reference/src/sdnet/utils/args.py`), so a reference command
 line works unchanged, plus the JAX package's training flags and model
 variants (`--backbone`, `--s2d_stem`, `--head_conv`). `--data_parallel`
-is 0 (every rank) or the number of ranks torchrun started
-(`parallel.mesh`); `--model_parallel` is accepted only at 1 and raises a
-named error otherwise. The device is a `--device` flag of each CLI.
+and `--model_parallel` lay the ranks torchrun started out as a (data, model)
+mesh whose product is their number (`parallel.mesh.mesh_shape`; data 0
+takes every rank the model axis leaves). The device is a `--device` flag of each CLI.
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ import torch
 
 from .annotations import get_unique_color_map
 from .models.resnet import ARCHS
-from .parallel.mesh import data_parallel_size
+from .parallel.mesh import mesh_shape, world_size
 
 DEFAULT_SEED = 926354916  # reference args.py:257
 
@@ -113,8 +113,8 @@ class Config:
     s2d_stem: bool = False
     head_conv: int = 0
 
-    # ranks on the data axis (0 = every rank torchrun started); the model
-    # axis is accepted only at 1 (parallel.mesh)
+    # the (data, model) mesh over the ranks torchrun started (data 0 = every
+    # rank the model axis leaves; parallel.mesh)
     data_parallel: int = 0
     model_parallel: int = 1
 
@@ -213,8 +213,8 @@ class Config:
             raise ValueError(
                 f"unknown hm_loss_fn {self.hm_loss_fn!r}: pick 'focal' or 'mse'"
             )
-        # 0 or the number of ranks torchrun started; no model axis
-        data_parallel_size(self.data_parallel, self.model_parallel)
+        # data x model must be the number of ranks torchrun started
+        mesh_shape(self.data_parallel, self.model_parallel, world_size())
         if self.backbone not in ARCHS:
             raise ValueError(
                 f"unknown backbone {self.backbone!r}: pick one of {sorted(ARCHS)}"
@@ -343,8 +343,9 @@ def build_parser(parser: Optional[argparse.ArgumentParser] = None) -> argparse.A
                         "(torchrun --nproc_per_node N -m structuredetector_tpu_torch.cli."
                         "train --data_parallel N).")
     p.add_argument("--model_parallel", type=int, default=d.model_parallel,
-                   help="Devices on the model axis: 1 only (output-channel tensor "
-                        "parallelism is not ported).")
+                   help="Ranks on the model axis: each conv's output channels split "
+                        "over them (torchrun --nproc_per_node D*M ... --data_parallel D "
+                        "--model_parallel M).")
     p.add_argument("--profile", action="store_true",
                    help="Write a torch.profiler trace of training steps 5-10 to "
                         "<run dir>/profile.")

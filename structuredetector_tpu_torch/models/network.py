@@ -42,7 +42,7 @@ import torch.nn.functional as F
 
 from ..ops.decode import split_head_output
 from .quantize import swap_int8_convs
-from .resnet import ARCHS, STAGE_WIDTHS, BatchNorm2d, stage, stage_channels, stem
+from .resnet import ARCHS, STAGE_WIDTHS, BatchNorm2d, Bottleneck, stage, stage_channels, stem
 
 
 def upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:
@@ -69,9 +69,6 @@ class FpnBlock(nn.Module):
             nn.ReLU(inplace=True),
         )
 
-    def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
-        return self.conv(upsample2x_nearest(x) + self.lateral(skip))
-
 
 class Head(nn.Module):
     """The reference's single shared 1x1 head (network.py:22-29)."""
@@ -79,9 +76,6 @@ class Head(nn.Module):
     def __init__(self, in_channels: int, out_channels: int):
         super().__init__()
         self.conv = nn.Conv2d(in_channels, out_channels, 1)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(x)
 
 
 def no_tf32(dtype: torch.dtype, device: torch.device):
@@ -102,6 +96,52 @@ def _precision(dtype: torch.dtype, device: torch.device):
     if dtype != torch.float32:
         raise ValueError(f"compute dtype must be bfloat16 or float32, not {dtype}")
     return no_tf32(dtype, device)
+
+
+class PlainPlan:
+    """How `SDNet.forward`'s walk runs each op in one process: the module
+    itself on the whole tensor. The plans of `parallel.partition` place
+    the same ops over the mesh's model axis."""
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def leave(self, a: torch.Tensor) -> torch.Tensor:
+        return a
+
+    def conv(self, m: nn.Module, a: torch.Tensor) -> torch.Tensor:
+        return m(a)
+
+    bn = maxpool = conv
+
+    def add(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        return a + b
+
+    def relu(self, a: torch.Tensor) -> torch.Tensor:
+        return F.relu(a)
+
+    def upsample(self, a: torch.Tensor) -> torch.Tensor:
+        return upsample2x_nearest(a)
+
+
+PLAIN = PlainPlan()
+
+
+def _block(plan, block: nn.Module, a):
+    """A `resnet.BasicBlock` or `resnet.Bottleneck` under `plan`:
+    conv-BN-ReLU (twice for the bottleneck), conv-BN, plus the identity
+    (its 1x1 projection where the block has one), ReLU."""
+    identity = a
+    if block.downsample is not None:
+        conv, bn = block.downsample
+        identity = plan.bn(bn, plan.conv(conv, a))
+    y = plan.relu(plan.bn(block.bn1, plan.conv(block.conv1, a)))
+    if isinstance(block, Bottleneck):
+        y = plan.relu(plan.bn(block.bn2, plan.conv(block.conv2, y)))
+        y = plan.bn(block.bn3, plan.conv(block.conv3, y))
+    else:
+        y = plan.bn(block.bn2, plan.conv(block.conv2, y))
+    return plan.relu(plan.add(y, identity))
 
 
 class SDNet(nn.Module):
@@ -139,21 +179,37 @@ class SDNet(nn.Module):
     def out_channels(self) -> int:
         return self.n_labels + self.n_parts + 4
 
-    def forward(self, x: torch.Tensor, raw_output: bool = False):
+    def forward(self, x: torch.Tensor, raw_output: bool = False, partition=None):
         """x: (B, in_channels, H, W) normalized float32. Returns the
         (B, M+N+4, H/4, W/4) float32 head output with `raw_output`, else
-        its split into 'anchor_hm', 'part_hm', 'offsets', 'embeddings'."""
+        its split into 'anchor_hm', 'part_hm', 'offsets', 'embeddings'.
+
+        One walk of the modules, each op placed by `partition`: None (one
+        process, `PlainPlan`), or a plan of the mesh's model axis
+        (`parallel.partition`), under which x is this rank's whole input
+        and every rank of its model group returns the whole output."""
         if self.int8 and self.training:
             raise ValueError("int8 is an inference-only mode; train in float")
+        if self.int8 and partition is not None:
+            raise ValueError("an int8 model is not partitioned over the model axis")
+        plan = PLAIN if partition is None else partition
         with _precision(self.dtype, x.device):
-            c2 = self.down1(self.adpater(x))
-            c3 = self.down2(c2)
-            c4 = self.down3(c3)
-            c5 = self.down4(c4)
-            f = self.up4(self.up3(self.up2(self.up1(c5), c4), c3), c2)
+            conv, bn, _, pool = self.adpater
+            a = plan.maxpool(pool, plan.relu(plan.bn(bn, plan.conv(conv, plan.enter(x)))))
+            stages = []
+            for i in range(1, 5):
+                for block in getattr(self, f"down{i}"):
+                    a = _block(plan, block, a)
+                stages.append(a)
+            c2, c3, c4, c5 = stages
+            f = plan.conv(self.up1, c5)
+            for up, skip in ((self.up2, c4), (self.up3, c3), (self.up4, c2)):
+                f = plan.add(plan.upsample(f), plan.conv(up.lateral, skip))
+                conv, bn, _ = up.conv
+                f = plan.relu(plan.bn(bn, plan.conv(conv, f)))
             if self.head_hidden is not None:
-                f = F.relu(self.head_hidden(f))
-            out = self.head(f).float()
+                f = plan.relu(plan.conv(self.head_hidden, f))
+            out = plan.leave(plan.conv(self.head.conv, f)).float()
         if raw_output:
             return out
         return split_head_output(out, self.n_labels, self.n_parts)

@@ -41,30 +41,30 @@ def _per_channel(v: torch.Tensor) -> torch.Tensor:
 
 
 class _GlobalBatchNorm(torch.autograd.Function):
-    """Train-mode batch norm over the global batch of every rank of the
-    default process group, in float32. Forward: the channel sums, then the
-    centred sums of squares, each all-reduced (two passes, so the
-    variance keeps its digits where the mean is large); the batch
-    variance is the biased one over the global count n (every rank holds
-    a batch of the same shape, `parallel.multihost`). Backward: the
-    rank's dx of the global loss from the all-reduced sums of dy and
-    dy * x_hat; the weight and bias gradients stay the rank's own, which
-    the data-parallel step averages with the other parameters'."""
+    """Train-mode batch norm over the batches of every rank of `group` (None:
+    the default process group), in float32. Forward: the channel sums,
+    then the centred sums of squares, each all-reduced (two passes, so the
+    variance keeps its digits where the mean is large); the batch variance
+    is the biased one over the group's count n (every rank holds a batch
+    of the same shape, `parallel.multihost`). Backward: the rank's dx of
+    the global loss from the all-reduced sums of dy and dy * x_hat; the
+    weight and bias gradients stay the rank's own, which the parallel step
+    reduces with the other parameters'."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, eps):
+    def forward(ctx, x, weight, bias, eps, group):
         xf = x.float()
-        n = x.numel() // x.shape[1] * dist.get_world_size()
+        n = x.numel() // x.shape[1] * dist.get_world_size(group)
         sums = _channel_sums(xf)
-        dist.all_reduce(sums)
+        dist.all_reduce(sums, group=group)
         mean = sums / n
         centred = xf - _per_channel(mean)
         sq = _channel_sums(centred * centred)
-        dist.all_reduce(sq)
+        dist.all_reduce(sq, group=group)
         var = sq / n
         invstd = torch.rsqrt(var + eps)
         y = centred * _per_channel(invstd * weight) + _per_channel(bias)
-        ctx.n = n
+        ctx.n, ctx.group = n, group
         ctx.save_for_backward(x, weight, mean, invstd)
         ctx.mark_non_differentiable(mean, var)
         return y.to(x.dtype), mean, var
@@ -78,10 +78,10 @@ class _GlobalBatchNorm(torch.autograd.Function):
         c = x.shape[1]
         local = torch.cat((_channel_sums(dyf), _channel_sums(dyf * x_hat)))
         sums = local.clone()
-        dist.all_reduce(sums)
+        dist.all_reduce(sums, group=ctx.group)
         dx = (dyf - _per_channel(sums[:c] / n) - x_hat * _per_channel(sums[c:] / n)) \
             * _per_channel(invstd * weight)
-        return dx.to(x.dtype), local[c:], local[:c], None
+        return dx.to(x.dtype), local[c:], local[:c], None, None
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -94,20 +94,22 @@ class BatchNorm2d(nn.BatchNorm2d):
     buffer itself is not handed to it.) The module and its state_dict
     keys are torch's.
 
-    In train mode under a process group of more than one rank (data
-    parallelism, `parallel.mesh`), the statistics are those of the
-    global batch, as under the JAX package's sharded `jit`: the forward
-    and the backward all-reduce them (`_GlobalBatchNorm`), and the
-    running statistics take the global mean and the biased variance over
-    n = world * B * H * W, the same on every rank."""
+    In train mode under a process group of more than one rank
+    (`parallel.mesh`), the statistics are those of the batch that the
+    ranks of `group` hold together (None: every rank of the default
+    group; the data group under the model axis, whose ranks own distinct
+    channels), as under the JAX package's sharded `jit`: the forward and
+    the backward all-reduce them (`_GlobalBatchNorm`), and the running
+    statistics take the global mean and the biased variance over n =
+    ranks * B * H * W, the same on every rank."""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, group=None) -> torch.Tensor:
         if not (self.training and self.track_running_stats):
             return super().forward(x)
         self._check_input_dim(x)
         self.num_batches_tracked.add_(1)
-        if world_size() > 1:
-            y, mean, var = _GlobalBatchNorm.apply(x, self.weight, self.bias, self.eps)
+        if world_size() > 1 and dist.get_world_size(group) > 1:
+            y, mean, var = _GlobalBatchNorm.apply(x, self.weight, self.bias, self.eps, group)
             with torch.no_grad():
                 self.running_mean.mul_(1.0 - self.momentum).add_(mean, alpha=self.momentum)
                 self.running_var.mul_(1.0 - self.momentum).add_(var, alpha=self.momentum)
@@ -124,7 +126,8 @@ class BatchNorm2d(nn.BatchNorm2d):
 class BasicBlock(nn.Module):
     """torchvision BasicBlock: 3x3-BN-ReLU-3x3-BN + identity, ReLU. The
     1x1 stride-2 downsample has no padding, like flax's "SAME" on even
-    sizes."""
+    sizes. The blocks hold the modules; `models.network.SDNet.forward`
+    runs them (`network._block`)."""
 
     expansion = 1
 
@@ -135,12 +138,6 @@ class BasicBlock(nn.Module):
         self.conv2 = nn.Conv2d(width, width, 3, padding=1, bias=False)
         self.bn2 = BatchNorm2d(width)
         self.downsample = _downsample(in_ch, width, stride)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        identity = x if self.downsample is None else self.downsample(x)
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = self.bn2(self.conv2(y))
-        return F.relu(y + identity)
 
 
 class Bottleneck(nn.Module):
@@ -160,13 +157,6 @@ class Bottleneck(nn.Module):
         self.conv3 = nn.Conv2d(width, out_ch, 1, bias=False)
         self.bn3 = BatchNorm2d(out_ch)
         self.downsample = _downsample(in_ch, out_ch, stride)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        identity = x if self.downsample is None else self.downsample(x)
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = F.relu(self.bn2(self.conv2(y)))
-        y = self.bn3(self.conv3(y))
-        return F.relu(y + identity)
 
 
 def _downsample(in_ch: int, out_ch: int, stride: int):

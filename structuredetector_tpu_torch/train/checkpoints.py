@@ -18,7 +18,8 @@ The port of `structuredetector_tpu/train/checkpoints.py`:
 
 Neither creates a directory before its first write, so a data-parallel
 run builds both on every rank (`--resume` reads on every rank) and only
-rank 0, which alone writes, makes the run directory.
+rank 0, which alone writes, makes the run directory. The files hold
+whole tensors whatever the mesh (`TrainState.state_dict`).
 """
 
 from __future__ import annotations
@@ -51,11 +52,13 @@ class CheckpointManager:
     def _path(self, step: int) -> Path:
         return self.directory / f"step_{step:012d}.pt"
 
-    def save_state(self, step: int, state: TrainState) -> Path:
+    def save_state(self, step: int, state) -> Path:
+        """Write `state`, a `TrainState` or its `state_dict()` (which under
+        the model axis every rank gathers before rank 0 writes)."""
         path = self._path(step)
         self.directory.mkdir(parents=True, exist_ok=True)
         tmp = path.with_name(path.name + ".tmp")
-        torch.save(state.state_dict(), tmp)
+        torch.save(state.state_dict() if isinstance(state, TrainState) else state, tmp)
         os.replace(tmp, path)
         for old in self._steps()[: -self.max_to_keep]:
             self._path(old).unlink()

@@ -14,7 +14,12 @@ Under data parallelism the state keeps the module itself: the optimizer
 is built over its parameters, and `state_dict` (the checkpoints, the
 `.msgpack` snapshots) has its keys, with no `module.` prefix. The
 `DistributedDataParallel` wrapper that the train step calls lives beside
-it (`TrainState.step_module`).
+it (`TrainState.step_module`). Under the model axis
+(`parallel.partition.shard_model`, whose `ChannelPlan` the state keeps
+as `partition`) the parameters and Adam's moments are the rank's Cout
+slices; `state_dict` gathers them whole and
+`load_state_dict` takes whole tensors and keeps the rank's slices, so a
+checkpoint is the same file whatever the mesh that wrote or reads it.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from __future__ import annotations
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 from torch.nn.parallel import DistributedDataParallel
 
 from ..parallel.mesh import world_size
@@ -63,29 +69,34 @@ def make_optimizer(model: torch.nn.Module, lr: float) -> torch.optim.Adam:
 class TrainState:
     """The model, its optimizer, the learning-rate schedule and the count
     of optimizer steps taken. `state_dict` holds all that a resumed run
-    needs."""
+    needs. `partition`: None, or the `parallel.partition.ChannelPlan` of
+    a model sharded over the mesh's model axis, which the train step's
+    forward takes."""
 
     def __init__(self, model: torch.nn.Module, optimizer: torch.optim.Optimizer,
-                 lr_schedule: Callable[[int], float], step: int = 0):
+                 lr_schedule: Callable[[int], float], step: int = 0, partition=None):
         self.model = model
+        self.partition = partition
         self.optimizer = optimizer
         self.lr_schedule = lr_schedule
         self.step = step
         self._ddp: Optional[DistributedDataParallel] = None
 
-    def step_module(self) -> torch.nn.Module:
-        """The module the train step calls: the model, or under a process
-        group of more than one rank a `DistributedDataParallel` around it,
-        made at the first call (every rank takes its first step together;
-        DDP's construction broadcasts rank 0's parameters). The BN buffers
-        are not broadcast: the global-batch BatchNorm keeps them equal."""
-        if world_size() == 1:
+    def step_module(self, group=None) -> torch.nn.Module:
+        """The module the train step calls: the model, or where `group` (None:
+        the default process group) holds more than one rank a
+        `DistributedDataParallel` around it over that group, made at the
+        first call (every rank takes its first step together; DDP's
+        construction broadcasts the group's first rank's parameters). The
+        BN buffers are not broadcast: the global-batch BatchNorm keeps them
+        equal."""
+        if world_size() == 1 or dist.get_world_size(group) == 1:
             return self.model
         if self._ddp is None:
             device = next(self.model.parameters()).device
             self._ddp = DistributedDataParallel(
                 self.model, device_ids=[device] if device.type == "cuda" else None,
-                broadcast_buffers=False)
+                broadcast_buffers=False, process_group=group)
         return self._ddp
 
     def apply_gradients(self) -> None:
@@ -97,15 +108,28 @@ class TrainState:
         self.step += 1
 
     def state_dict(self) -> dict:
-        return {"step": self.step, "model": self.model.state_dict(),
-                "optimizer": self.optimizer.state_dict()}
+        """The whole state; under the model axis a collective of every rank."""
+        model, optimizer = self.model.state_dict(), self.optimizer.state_dict()
+        if self.partition is not None:
+            model = self.partition.full_state_dict(model)
+            optimizer = self.partition.full_optimizer_state(optimizer, self._param_names())
+        return {"step": self.step, "model": model, "optimizer": optimizer}
 
     def load_state_dict(self, sd: dict) -> None:
-        self.model.load_state_dict(sd["model"], strict=True)
-        self.optimizer.load_state_dict(sd["optimizer"])
+        model, optimizer = sd["model"], sd["optimizer"]
+        if self.partition is not None:
+            model = self.partition.local_state_dict(model)
+            optimizer = self.partition.local_optimizer_state(optimizer, self._param_names())
+        self.model.load_state_dict(model, strict=True)
+        self.optimizer.load_state_dict(optimizer)
         self.step = int(sd["step"])
 
+    def _param_names(self):
+        """The parameters' names in the optimizer's order."""
+        return [n for n, _ in self.model.named_parameters()]
 
-def create_train_state(config, model: torch.nn.Module, steps_per_epoch: int) -> TrainState:
+
+def create_train_state(config, model: torch.nn.Module, steps_per_epoch: int,
+                       partition=None) -> TrainState:
     schedule = make_lr_schedule(config, steps_per_epoch)
-    return TrainState(model, make_optimizer(model, schedule(0)), schedule)
+    return TrainState(model, make_optimizer(model, schedule(0)), schedule, partition=partition)

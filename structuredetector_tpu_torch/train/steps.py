@@ -15,19 +15,32 @@ train step takes the host's batch as it arrives on the device, (B, H, W,
 Nothing here waits for the card: the stats come back as 0-d tensors.
 
 Under a process group of more than one rank (`parallel.mesh`, torchrun)
-the step has the JAX mesh step's global-batch semantics: each rank
-brings its slice of the global batch, the augmentation is drawn for the
-global batch, BatchNorm takes global statistics, each loss normalizer
-is global, and `DistributedDataParallel` averages the gradients of the
-ranks' shares of the global loss, scaled by the world size so that the
-average is the global loss's gradient. Every rank then takes the same
-Adam step; the stats are the global values. `make_sharded_forward` is
-the data-parallel inference forward (JAX `steps.py:222-245`); row
-(spatial) partitioning is not ported.
+the step has the JAX mesh step's global-batch semantics: each rank of
+the data axis brings its slice of the global batch, the augmentation is
+drawn for the global batch, BatchNorm takes global statistics, each loss
+normalizer is global, and `DistributedDataParallel` averages the
+gradients of the ranks' shares of the global loss, scaled by the ranks'
+count so that the average is the global loss's gradient. Every rank
+then takes the same Adam step; the stats are the global values.
+
+On the model axis (`parallel.partition`): a model sharded by
+`shard_model` (`--model_parallel M`) runs its channel-sharded forward;
+the ranks of a model group share their batch, DDP runs over the data
+group, and the replicated parameters' gradients are averaged over the
+model group. With `spatial=True` (JAX `make_train_step(spatial=True)`)
+the rows of a data rank's batch split over the model axis instead
+(`RowPlan`): the parameters are replicated (JAX also shards their Cout
+under `spatial=True`, placement that leaves the numerics alone), the BN
+statistics are the whole mesh's, the augmentation and the targets are
+the data rank's whole batch's, the loss reads the gathered head output,
+and DDP averages every gradient over the whole mesh.
+`make_sharded_forward` is the inference forward over a mesh (JAX
+`steps.py:222-245`), with the rows split under `spatial=True`.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional
 
 import torch
@@ -37,7 +50,8 @@ from ..ops.decode import split_head_output
 from ..ops.device_augment import device_augment, step_generator
 from ..ops.encode import EncodedTargets, encode_targets
 from ..ops.losses import sdnet_loss
-from ..parallel.mesh import SPATIAL_NOT_PORTED, all_reduce_sum, rank, world_size
+from ..parallel.mesh import all_reduce_sum, rank, world_size
+from ..parallel.partition import RowPlan, all_gather
 from .state import TrainState
 
 
@@ -62,12 +76,27 @@ def _grid(images: torch.Tensor, config):
 
 
 def train_step(state: TrainState, images: torch.Tensor, kp: Dict[str, torch.Tensor],
-               config, *, augment: bool = False) -> Dict[str, torch.Tensor]:
-    """One optimizer step on a batch (a rank's slice of the global batch
-    under a process group); `state` advances in place. Returns the loss
-    stats of the (global) batch (0-d float32 tensors)."""
+               config, *, augment: bool = False, mesh=None,
+               spatial: bool = False) -> Dict[str, torch.Tensor]:
+    """One optimizer step on a batch (a data rank's slice of the global
+    batch under a process group); `state` advances in place. Returns the
+    loss stats of the (global) batch (0-d float32 tensors).
+
+    `mesh` (`parallel.mesh.create_mesh`): where the batch splits (None:
+    every rank on the data axis). A model sharded over the model axis
+    (`state.partition`) steps on the mesh it was sharded over;
+    `spatial=True` splits the rows of a replicated model's batch over the
+    mesh's model axis."""
     dtype = config.compute_dtype
-    world = world_size()
+    if spatial and (mesh is None or state.partition is not None):
+        raise ValueError("train_step(spatial=True) takes a mesh and a replicated model")
+    plan = RowPlan(mesh) if spatial else state.partition
+    if plan is not None and plan.mesh is not mesh:
+        raise ValueError("a model sharded over the model axis steps on its mesh (mesh=)")
+    if mesh is not None:
+        index, ranks, group = mesh.data_index, mesh.data, mesh.data_group
+    else:
+        index, ranks, group = rank(), world_size(), None
     out_h, out_w = _grid(images, config)
     if augment:
         if images.dtype == torch.uint8:
@@ -76,71 +105,79 @@ def train_step(state: TrainState, images: torch.Tensor, kp: Dict[str, torch.Tens
             images = images.to(dtype)
         images, kp = device_augment(images, kp, step_generator(config.seed, state.step),
                                     out_w=out_w, out_h=out_h, flip_prob=config.flip_prob,
-                                    rank=rank(), world=world)
+                                    rank=index, world=ranks)
     targets = encode_batch(kp, config, out_h, out_w)
     state.model.train()
-    net = state.step_module()
+    # DDP averages over the data group, or under `spatial` over the whole
+    # mesh, where each rank's gradient is its rows' part of its data rank's
+    net = state.step_module(None if spatial else group)
+    scale = mesh.size if spatial else ranks
     x = images.permute(0, 3, 1, 2).contiguous()
+    global_sum = functools.partial(all_reduce_sum, group=group) if ranks > 1 else None
     with no_tf32(dtype, images.device):
-        head = net(x, raw_output=True)
+        head = net(x, raw_output=True, partition=plan)
         loss, stats = _loss(split_head_output(head, config.n_labels, config.n_parts),
-                            targets, config, global_sum=all_reduce_sum if world > 1 else None)
+                            targets, config, global_sum=global_sum)
         state.optimizer.zero_grad(set_to_none=True)
-        # DDP averages the ranks' gradients: world * the rank's share
-        # makes the average the gradient of the global loss
-        (loss * world if world > 1 else loss).backward()
+        # scale * the rank's share makes DDP's average the gradient of the
+        # global loss
+        (loss * scale if scale > 1 else loss).backward()
+    if state.partition is not None:
+        state.partition.average_replicated_grads(state.model)
     state.apply_gradients()
     return {k: v.detach() for k, v in stats.items()}
 
 
 @torch.no_grad()
 def eval_step(model: torch.nn.Module, images: torch.Tensor, kp: Dict[str, torch.Tensor],
-              config, params: Optional[Dict[str, torch.Tensor]] = None):
+              config, params: Optional[Dict[str, torch.Tensor]] = None, partition=None):
     """Validation step: an eval-mode forward (running BN statistics), the
     loss stats and the ground-truth heatmaps for the debug panels.
     `params` (e.g. the EMA average) stand in for the model's parameters,
-    its buffers stay the live ones. Returns (outputs, stats, gt_maps),
-    maps NCHW."""
+    its buffers stay the live ones; `partition` is the plan of a model
+    sharded over the model axis. Returns (outputs, stats, gt_maps), maps
+    NCHW."""
     out_h, out_w = _grid(images, config)
     targets = encode_batch(kp, config, out_h, out_w)
     model.eval()
     x = images.permute(0, 3, 1, 2).contiguous()
     if params is None:
-        outputs = model(x)
+        outputs = model(x, partition=partition)
     else:
-        outputs = torch.func.functional_call(model, params, (x,))
+        outputs = torch.func.functional_call(model, params, (x,), {"partition": partition})
     _, stats = _loss(outputs, targets, config)
     return outputs, stats, {"anchor_hm": targets.anchor_hm, "part_hm": targets.part_hm}
 
 
 def make_sharded_forward(model: torch.nn.Module, mesh=None, spatial: bool = False):
-    """Data-parallel inference (JAX `make_sharded_forward`): `forward(images)`
+    """Inference over a mesh (JAX `make_sharded_forward`): `forward(images)`
     takes the whole (B, H, W, 3) normalized batch on every rank, runs the
     eval-mode model on this rank's contiguous slice, and all-gathers the
     head outputs, so every rank returns what one forward of the batch
-    gives ('anchor_hm', 'part_hm', 'offsets', 'embeddings'). Without a
-    mesh of more than one rank it is that one forward. B must divide by
-    the ranks. `spatial=True` (image rows over a model axis) raises: row
-    partitioning is not ported."""
-    import torch.distributed as dist
-
-    if spatial:
-        raise NotImplementedError(f"make_sharded_forward(spatial=True): {SPATIAL_NOT_PORTED}")
-    ranks = 1 if mesh is None else mesh.size
+    gives ('anchor_hm', 'part_hm', 'offsets', 'embeddings'). The batch
+    splits over every rank of the mesh, or with `spatial=True` over its
+    data axis while the image rows split over its model axis (a giant
+    image rides several devices; `parallel.partition.RowPlan`). Without a
+    mesh of more than one rank it is one forward. B must divide by the
+    ranks the batch splits over."""
+    if mesh is None or mesh.size == 1:
+        ranks, index, group, plan = 1, 0, None, None
+    elif spatial:
+        ranks, index, group, plan = mesh.data, mesh.data_index, mesh.data_group, RowPlan(mesh)
+    else:
+        ranks, index, group, plan = mesh.size, mesh.rank, None, None
 
     @torch.no_grad()
     def forward(images: torch.Tensor) -> Dict[str, torch.Tensor]:
         model.eval()
-        if ranks == 1:
-            return model(images.permute(0, 3, 1, 2).contiguous())
         b = images.shape[0]
         if b % ranks:
             raise ValueError(f"batch {b} does not split over {ranks} ranks")
         local = b // ranks
-        part = images[mesh.rank * local:(mesh.rank + 1) * local]
-        head = model(part.permute(0, 3, 1, 2).contiguous(), raw_output=True)
-        heads = [torch.empty_like(head) for _ in range(ranks)]
-        dist.all_gather(heads, head)
-        return split_head_output(torch.cat(heads), model.n_labels, model.n_parts)
+        part = images[index * local:(index + 1) * local].permute(0, 3, 1, 2).contiguous()
+        head = model(part, raw_output=True, partition=plan)
+        if ranks > 1:
+            head = all_gather(head, 0, group, ranks, mesh.backend)
+        return split_head_output(head, model.n_labels, model.n_parts)
 
     return forward

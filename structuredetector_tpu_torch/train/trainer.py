@@ -25,6 +25,16 @@ JSONs before the others read them, saves the state, the EMA and the best
 snapshots. Every rank validates the whole valid set through the
 `Decoder` (kernel A on the card) on its module, and runs the stall
 watchdog; a SIGTERM/SIGINT stops every rank at the same batch boundary.
+
+The model axis (`--model_parallel M`, `parallel.partition.shard_model`):
+each rank keeps the Cout slices of its model index (its `ChannelPlan`,
+`self.partition`, goes to every forward), the ranks of a model group
+load the same slice of each global batch and, where the host augments
+it, take their first rank's draw (each rank computes its channels of
+one batch), and the state, the EMA
+and the best snapshots are gathered whole on every rank before rank 0
+writes them, in the one-process layout; `--resume` under any mesh keeps
+each rank's slices of them.
 """
 
 from __future__ import annotations
@@ -54,6 +64,7 @@ from ..models.weights import (
     save_msgpack,
 )
 from ..parallel.mesh import create_mesh
+from ..parallel.partition import shard_model, share_over_model
 from ..utils import progress, resolve_device
 from .checkpoints import BestModelSaver, CheckpointManager
 from .state import TrainState, create_train_state, make_optimizer
@@ -242,8 +253,8 @@ class Trainer:
         "cpu" explicitly to train there."""
         self.config = config
         self.device = resolve_device(device)
-        # data parallelism: rank 0 owns logging and the files; every rank
-        # loads its slice of each global batch (parallel.multihost)
+        # rank 0 owns logging and the files; every rank loads its data
+        # index's slice of each global batch (parallel.multihost)
         self.mesh = create_mesh(config.data_parallel, config.model_parallel, self.device)
         self.process_index = self.mesh.rank
         self.process_count = self.mesh.world
@@ -263,6 +274,8 @@ class Trainer:
             if self.is_lead:
                 print(f"Warm-started encoder from {path}")
         self.model = model.to(self.device)
+        # before the optimizer: Adam's moments are slices too
+        self.partition = shard_model(self.model, self.mesh) if self.mesh.model > 1 else None
 
         self.decoder = Decoder(config)
         self.evaluator = Evaluator(config)
@@ -276,7 +289,7 @@ class Trainer:
             self.train_set, batch_size=config.batch_size, shuffle=True, drop_last=True,
             num_workers=config.num_workers, seed=config.seed,
             batch_fetch=choose_batch_fetch(config, self.train_set, self.train_augmentation),
-            process_index=self.process_index, process_count=self.process_count)
+            process_index=self.mesh.data_index, process_count=self.mesh.data)
         valid_augmentation = ValidationAugmentation(config)
         self.valid_set = CropDataset(config, config.valid_dir, valid_augmentation)
         if self.is_lead:
@@ -292,7 +305,8 @@ class Trainer:
             num_workers=config.num_workers,
             batch_fetch=choose_batch_fetch(config, self.valid_set, valid_augmentation))
 
-        self.state = create_train_state(config, self.model, max(1, len(self.train_loader)))
+        self.state = create_train_state(config, self.model, max(1, len(self.train_loader)),
+                                        partition=self.partition)
         self.lr_schedule = self.state.lr_schedule
 
         if config.resume_dir:
@@ -339,12 +353,13 @@ class Trainer:
         return {n: p.detach().clone() for n, p in self.model.named_parameters()}
 
     def _weights(self) -> Dict[str, torch.Tensor]:
-        """The weights validation runs and the snapshots keep: the EMA
-        parameters with the live BN buffers when --ema is on."""
+        """The weights the snapshots keep, whole: the EMA parameters with the
+        live BN buffers when --ema is on. Under the model axis a collective
+        of every rank."""
         sd = self.model.state_dict()
         if self.ema_params is not None:
             sd.update(self.ema_params)
-        return sd
+        return sd if self.partition is None else self.partition.full_state_dict(sd)
 
     # -- preemption -----------------------------------------------------
 
@@ -373,20 +388,23 @@ class Trainer:
             signal.signal(sig, prev)
         self._prev_handlers = {}
 
-    def _save_ema(self):
-        if self.ema_params is not None:
-            save_msgpack(self._weights(), self.save_dir / "ema_params.msgpack")
+    def _save(self):
+        """The state and the EMA, gathered on every rank, written by rank 0."""
+        state = self.state.state_dict()
+        weights = self._weights() if self.ema_params is not None else None
+        if self.is_lead:
+            self.checkpoints.save_state(self.global_step, state)
+            if weights is not None:
+                save_msgpack(weights, self.save_dir / "ema_params.msgpack")
 
     def _preemption_save(self):
         # a long save is progress: the watchdog must not exit mid-write
         if self._watchdog is not None:
             self._watchdog.stop()
-        if not self.is_lead:
-            return
-        self.checkpoints.save_state(self.global_step, self.state)
-        self._save_ema()
-        print(f"Preemption: saved train state at step {self.state.step} to "
-              f"{self.save_dir}; resume with --resume {self.save_dir}", flush=True)
+        self._save()
+        if self.is_lead:
+            print(f"Preemption: saved train state at step {self.state.step} to "
+                  f"{self.save_dir}; resume with --resume {self.save_dir}", flush=True)
 
     # -- warm-up ----------------------------------------------------------
 
@@ -454,9 +472,7 @@ class Trainer:
                     return
                 if epoch % 2 == 0:
                     self.valid()
-                if self.is_lead:
-                    self.checkpoints.save_state(self.global_step, self.state)
-                    self._save_ema()
+                self._save()
                 if self._watchdog is not None:
                     self._watchdog.beat()
                 self.writer.flush()
@@ -514,8 +530,12 @@ class Trainer:
         for i, batch in enumerate(batches):
             if profile_this and i == 5:
                 prof = self._start_profile()
+            if self.partition is not None and not augment:
+                # the host's draws come from one rng that the loader's
+                # threads share in no set order
+                share_over_model([batch["image"], *batch["keypoints"].values()], self.mesh)
             stats = train_step(self.state, batch["image"], batch["keypoints"], cfg,
-                               augment=augment)
+                               augment=augment, mesh=self.mesh)
             if self.ema_params is not None:
                 ema_update(self.ema_params, self.model, cfg.ema, self.state.step)
             if prof is not None and i == 10:
@@ -560,7 +580,8 @@ class Trainer:
                      show=self.is_lead), self.device)
         for batch in batches:
             outputs, stats, gt_maps = eval_step(self.model, batch["image"], batch["keypoints"],
-                                                cfg, params=self.ema_params)
+                                                cfg, params=self.ema_params,
+                                                partition=self.partition)
             data = self.decoder(outputs, return_metadata=True)
             bn = len(batch["annotation"])
             for i, annotation in enumerate(batch["annotation"]):
@@ -579,11 +600,12 @@ class Trainer:
 
         loss_avg = {k: v / max(n, 1) for k, v in loss_sums.items()}
         summary = self.evaluator.scalar_summary()
+        weights = self._weights()
         if not self.is_lead:  # every rank validated the same set: rank 0 writes
             return summary
         self._check_embedding_plateau(loss_avg)
         self.best_models.update(
-            self._weights(),
+            weights,
             loss=loss_avg.get("total_loss", float("inf")),
             csi_f1=summary.get("csi/f1_total", 0.0),
             classif_f1=summary.get("classif/f1_total", 0.0),
@@ -672,6 +694,8 @@ class Trainer:
             if ema_file.exists():
                 try:
                     sd = load_checkpoint(ema_file)
+                    if self.partition is not None:
+                        sd = self.partition.local_state_dict(sd)
                     for name, value in self.ema_params.items():
                         value.copy_(sd[name])
                 except (OSError, ValueError, KeyError) as e:

@@ -248,6 +248,52 @@ def test_two_rank_train_step_on_card(tmp_path):
 
 
 @pytest.mark.cuda
+def test_model_axis_on_card(tmp_path):
+    """The mesh's model axis on the card, two ranks sharing it over gloo: the
+    1 x 2 tensor-parallel step (`--model_parallel 2`) at 32x32 on a global
+    batch of 8, and the 1 x 2 row forward of a 32x32 batch of 4
+    (tests/torch_port_parallel_worker.py's "card" case), against one
+    process on the card. The ranks end identical; the loss within 1e-4
+    and the gradient within 1e-4 of its largest element (cuDNN may pick
+    other fp32 algorithms for the halved output channels and rows), the
+    parameters within Adam's bound of 2 * lr; the row forward's maps
+    within 1e-4 of their scale."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from structuredetector_tpu_torch.models.network import init_model
+    from torch_port_parallel_worker import (
+        GLOBAL_BATCH,
+        ROW_INPUTS,
+        forward_images,
+        mesh_config,
+        mesh_step,
+        small_config,
+        start_ranks,
+        train_batch,
+    )
+
+    parts = start_ranks(tmp_path, "card", device="cuda")()
+    cfg = small_config()
+    want = mesh_step(cfg, None, *train_batch(cfg, GLOBAL_BATCH, 7, False), device="cuda")
+    assert parts[0]["tp"]["fingerprint"] == parts[1]["tp"]["fingerprint"]
+    got = parts[0]["tp"]
+    assert abs(got["loss"] - want["loss"]) <= 1e-4 * abs(want["loss"])
+    scale = max(float(g.abs().max()) for g in want["grad"].values())
+    for key, value in want["grad"].items():
+        assert float((got["grad"][key] - value).abs().max()) <= 1e-4 * scale, key
+    for key, value in want["state"].items():
+        if value.is_floating_point() and not key.endswith(("running_mean", "running_var")):
+            assert float((got["state"][key] - value).abs().max()) <= 2 * cfg.learning_rate, key
+    with torch.no_grad():
+        plain = init_model(mesh_config()).cuda()(
+            torch.from_numpy(forward_images(*ROW_INPUTS["rows_32"])).cuda().permute(0, 3, 1, 2))
+    for r in parts:
+        for key, value in plain.items():
+            value = value.cpu()
+            assert float((r["rows_32"][key] - value).abs().max() / value.abs().max()) <= 1e-4, key
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shape,cout,k", [((2, 64, 64, 64), 64, 3), ((1, 16, 16, 512), 512, 3),
                                           ((2, 32, 32, 128), 256, 1), ((1, 2, 2, 512), 512, 3),
                                           ((1, 4, 4, 256), 256, 1), ((1, 3, 5, 12), 20, 3)])

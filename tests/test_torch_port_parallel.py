@@ -194,7 +194,7 @@ def test_maybe_initialize_distributed_connect_failure_raises():
 
 @pytest.mark.parametrize("flag,match", [
     (["--data_parallel", "2"], "torchrun --nproc_per_node 2"),
-    (["--model_parallel", "2"], "output-channel tensor parallelism is not ported"),
+    (["--model_parallel", "2"], "torchrun --nproc_per_node 2 .*--model_parallel 2"),
 ])
 def test_config_errors_without_a_group(flag, match):
     with pytest.raises(ValueError, match=match):
@@ -337,7 +337,8 @@ def test_sharded_forward_over_two_ranks(runs):
     """Each rank runs its half and all-gathers: every rank returns the
     one-process forward of the whole batch. Under the group the mesh is
     2 x 1 on gloo, and a --data_parallel that is not the world size
-    raises naming the torchrun command."""
+    raises naming the torchrun command. Without a mesh, the spatial forward
+    is the one forward."""
     want = runs["one"]["forward"]
     for r in runs["ranks"]:
         for key, value in want.items():
@@ -345,8 +346,10 @@ def test_sharded_forward_over_two_ranks(runs):
         assert set(r["config_errors"]) == {1, 3}
         assert "torchrun --nproc_per_node 3" in r["config_errors"][3]
     assert [r["mesh"] for r in runs["ranks"]] == [(2, 1, 0, 2, "gloo"), (2, 1, 1, 2, "gloo")]
-    with pytest.raises(NotImplementedError, match="row \\(spatial\\) partitioning is not"):
-        make_sharded_forward(init_model(small_config()), spatial=True)
+    spatial = make_sharded_forward(init_model(small_config()), spatial=True)(
+        torch.from_numpy(train_batch(small_config(), GLOBAL_BATCH, seed=9, uint8=False)[0]))
+    for key, value in want.items():
+        assert torch.equal(spatial[key], value), key
 
 
 # -- cli.train under 2 ranks -------------------------------------------------

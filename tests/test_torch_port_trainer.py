@@ -101,9 +101,9 @@ class _Recorder:
         self.calls = []
         self.after = after
 
-    def __call__(self, state, images, kp, config, augment=False):
+    def __call__(self, state, images, kp, config, **kw):
         self.calls.append((state.step, kp["anchors_xy"][:, 0].tolist()))
-        out = _TRAIN_STEP(state, images, kp, config, augment=augment)
+        out = _TRAIN_STEP(state, images, kp, config, **kw)
         if self.after is not None:
             self.after(state)
         return out

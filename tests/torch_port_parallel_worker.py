@@ -13,8 +13,19 @@ Imports nothing of JAX.
 Cases: "all" (one BatchNorm2d forward and backward, `sdnet_loss` on
 every `LOSS_CASES` pattern, both `STEP_RUNS`, `make_sharded_forward`
 and the config errors under a group; ARGS: the "plain" run's weights
-file), "step" (the "augment" run) and "cli" (ARGS: the working
-directory, then `cli.train`'s arguments).
+file), "step" (the "augment" run), "cli" (ARGS: the working directory,
+then `cli.train`'s arguments), and the model axis's (`tests/
+test_torch_port_model_axis.py`): "model_axis" on 2 ranks (the 1 x 2
+tensor-parallel step, its checkpoint restored on two mesh shapes, the
+mesh and the config under the group; ARGS: `mesh_config`'s weights
+file, a checkpoint directory) and "rows" on 4 ranks (the row forward
+over 1 x 4, the spatial step over 2 x 2, with each `FAULTS` fault planted
+too, the tensor-parallel step over 2 x 2; ARGS: the weights file),
+"host_augment" (the "cli" case with the host augmentation's rng seeded
+by rank, as a thread order may leave it, recording the digest of every
+batch the train step takes), and "card" on 2 ranks (`tests/
+test_torch_port_cuda.py`: the 1 x 2 tensor-parallel step and the 1 x 2
+row forward).
 """
 
 from __future__ import annotations
@@ -168,6 +179,157 @@ def run_steps(cfg, images, kp, steps: int, augment: bool, device, weights=None):
     return out
 
 
+def mesh_config(**overrides) -> Config:
+    """JAX tests/test_parallel.py's `make_config`: 32x32, `fpn_depth` 16,
+    fp32, one label and one part kind (a head of 6 channels, which
+    shards over 2 ranks), batch 4, the MSE heatmap loss."""
+    values = dict(width=32, height=32, fpn_depth=16, max_objects=2, max_parts=4, batch_size=4,
+                  use_amp=False, learning_rate=1e-3, hm_loss_fn="mse", num_workers=0)
+    values.update(overrides)
+    return Config(**values).set_labels(["bean"], ["leaf"])
+
+
+def jax_test_batch(cfg, b: int):
+    """JAX tests/test_parallel.py's `_batch(cfg, b)`, drawn the same way:
+    (images, keypoints) as numpy arrays."""
+    rng = np.random.default_rng(0)
+    o, p = cfg.max_objects, cfg.max_parts
+    kp = {
+        "anchors_xy": rng.uniform(1, 7, (b, o, 2)).astype(np.float32),
+        "anchor_cls": np.zeros((b, o), np.int32),
+        "anchor_mask": np.ones((b, o), bool),
+        "parts_xy": rng.uniform(1, 7, (b, p, 2)).astype(np.float32),
+        "part_kind": np.zeros((b, p), np.int32),
+        "part_owner_xy": rng.uniform(1, 7, (b, p, 2)).astype(np.float32),
+        "part_mask": np.ones((b, p), bool),
+    }
+    return rng.normal(0, 1, (b, cfg.height, cfg.width, 3)).astype(np.float32), kp
+
+
+def forward_images(shape, seed: int) -> np.ndarray:
+    """JAX tests/test_parallel.py's forward inputs: N(0, 1) of `shape`."""
+    return np.random.default_rng(seed).normal(0, 1, shape).astype(np.float32)
+
+
+# the row forward's inputs: JAX's 32x32 batch 4 and its 64x64 single image
+ROW_INPUTS = {"rows_32": ((4, 32, 32, 3), 1), "rows_64": ((1, 64, 64, 3), 2)}
+# the variants through the row forward: (config overrides, input)
+ROW_VARIANTS = {"s2d": (dict(s2d_stem=True), "rows_32"),
+                "head_conv": (dict(head_conv=16), "rows_64"),
+                "resnet50": (dict(backbone="resnet50"), "rows_64")}
+
+
+def _dropped_halo_grad(ctx, g):
+    """`_Halo.backward` that drops the halo rows' gradients instead of
+    returning them to the ranks that own those rows."""
+    return g.narrow(2, ctx.top, ctx.h).contiguous(), None, None, None, None
+
+
+def _summed_gather_grad(ctx, g):
+    """`_Gather.backward` that always sums over the group: where every rank
+    holds the same whole gradient (the gathered head output) it scales
+    the gradient by the ranks' count."""
+    from structuredetector_tpu_torch.parallel import partition
+
+    g = partition._summed(g, ctx.plan.group)
+    return g.narrow(ctx.dim, ctx.plan.index * ctx.local, ctx.local), None, None, None
+
+
+# faults planted in the spatial backward, which the spatial step's bar
+# must refuse: (autograd Function's name in parallel.partition, backward)
+FAULTS = {"dropped_halo_grad": ("_Halo", _dropped_halo_grad),
+          "summed_gather_grad": ("_Gather", _summed_gather_grad)}
+
+
+def planted(fault: str):
+    """A context in which `FAULTS[fault]` replaces that backward."""
+    import contextlib
+
+    from structuredetector_tpu_torch.parallel import partition
+
+    name, backward = FAULTS[fault]
+    fn = getattr(partition, name)
+
+    @contextlib.contextmanager
+    def context():
+        right = fn.__dict__["backward"]
+        fn.backward = staticmethod(backward)
+        try:
+            yield
+        finally:
+            fn.backward = right
+
+    return context()
+
+
+def mesh_step(cfg, mesh, images, kp, weights=None, spatial: bool = False, device="cpu"):
+    """One train step (no augmentation) of the seeded model (or `weights`)
+    on `mesh` (None: one process), each rank on its data index's slice of
+    the global batch: the loss; the gradient, the BN statistics and the
+    state after the step, whole (gathered from the model axis); the
+    parameter and BN-statistic elements this rank holds; the whole train
+    state dict ("whole")."""
+    from structuredetector_tpu_torch.models.network import init_model
+    from structuredetector_tpu_torch.parallel.partition import shard_model
+    from structuredetector_tpu_torch.train.state import create_train_state
+    from structuredetector_tpu_torch.train.steps import train_step
+
+    model = init_model(cfg)
+    if weights is not None:
+        model.load_state_dict(weights, strict=True)
+    model = model.to(device)
+    plan = shard_model(model, mesh) if mesh is not None and mesh.model > 1 and not spatial \
+        else None
+    state = create_train_state(cfg, model, steps_per_epoch=10, partition=plan)
+    index, ranks = (mesh.data_index, mesh.data) if mesh is not None else (0, 1)
+    images, kp = _part(images, index, ranks), {k: _part(v, index, ranks) for k, v in kp.items()}
+    stats = train_step(state, torch.from_numpy(images).to(device),
+                       {k: torch.from_numpy(v).to(device) for k, v in kp.items()}, cfg,
+                       mesh=mesh, spatial=spatial)
+    grad = {n: p.grad.detach() for n, p in model.named_parameters()}
+    if plan is not None:
+        grad = plan.full_state_dict(grad)
+    whole = state.state_dict()
+    out = {"loss": float(stats["total_loss"]),
+           "grad": {k: v.cpu().clone() for k, v in grad.items()},
+           "state": {k: v.cpu().clone() for k, v in whole["model"].items()},
+           "elements": {"params": sum(p.numel() for p in model.parameters()),
+                        "batch_stats": sum(b.numel() for n, b in model.named_buffers()
+                                           if n.endswith(("running_mean", "running_var")))},
+           "whole": whole}
+    return out
+
+
+def _restored(cfg, mesh, ckpt_dir, whole) -> dict:
+    """The checkpoint in `ckpt_dir` restored into a fresh train state
+    sharded on `mesh` and into an unsharded one (the 2 x 1 mesh's): does
+    each hold exactly `whole` (its slices on the sharded one)?"""
+    from structuredetector_tpu_torch.models.network import init_model
+    from structuredetector_tpu_torch.parallel.partition import shard_model
+    from structuredetector_tpu_torch.train.checkpoints import CheckpointManager
+    from structuredetector_tpu_torch.train.state import create_train_state
+
+    out = {}
+    for name, shard in (("sharded", True), ("unsharded", False)):
+        model = init_model(cfg)
+        plan = shard_model(model, mesh) if shard else None
+        state = create_train_state(cfg, model, steps_per_epoch=10, partition=plan)
+        CheckpointManager(ckpt_dir).restore_state(state)
+        want = whole
+        if shard:
+            want = {"model": plan.local_state_dict(whole["model"]),
+                    "optimizer": plan.local_optimizer_state(
+                        whole["optimizer"], [n for n, _ in model.named_parameters()])}
+        got = state.state_dict() if not shard else {"model": model.state_dict(),
+                                                    "optimizer": state.optimizer.state_dict()}
+        same = all(torch.equal(got["model"][k], v) for k, v in want["model"].items())
+        for i, moments in want["optimizer"]["state"].items():
+            same &= all(torch.equal(got["optimizer"]["state"][i][k], v)
+                        for k, v in moments.items())
+        out[name] = bool(same and state.step == 1)
+    return out
+
+
 def fingerprint(tensors) -> dict:
     """An exact digest of each tensor's bytes: two ranks' states compared
     without moving them."""
@@ -264,7 +426,7 @@ def main(argv) -> None:
 
     # torchrun's environment, with the FileStore in place of its TCP one
     os.environ.update(LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world))
-    if case == "cli":
+    if case in ("cli", "host_augment"):
         os.environ.update(RANK=str(rank), WORLD_SIZE=str(world))
     if not maybe_initialize_distributed(device, init_method=f"file://{store}",
                                         world_size=world, rank=rank, timeout_s=120):
@@ -275,6 +437,69 @@ def main(argv) -> None:
         return _part(a, rank, world)
 
     result = {}
+    if case == "model_axis":
+        from structuredetector_tpu_torch.train.checkpoints import CheckpointManager
+
+        mesh = create_mesh(1, 2, device)
+        cfg = mesh_config()
+        tp = mesh_step(cfg, mesh, *jax_test_batch(cfg, 4), torch.load(args[0]))
+        if rank == 0:
+            CheckpointManager(args[1]).save_state(1, tp["whole"])
+        dist.barrier()
+        result["restore"] = _restored(cfg, mesh, args[1], tp["whole"])
+        result["tp"] = tp
+        result["tp_head7"] = mesh_step(small_config(), mesh,
+                                       *train_batch(small_config(), GLOBAL_BATCH, 7, False))
+        result["tp_resnet50"] = mesh_step(small_config(backbone="resnet50"), mesh,
+                                          *train_batch(small_config(), GLOBAL_BATCH, 7, False))
+        result["mesh"] = (mesh.data, mesh.model, mesh.data_index, mesh.model_index,
+                          dist.get_world_size(mesh.data_group),
+                          dist.get_world_size(mesh.model_group), mesh.backend)
+        errors = {}
+        for d, m in ((1, 2), (0, 2), (2, 2), (1, 3)):
+            try:
+                small_config(data_parallel=d, model_parallel=m).validate()
+                errors[d, m] = None
+            except ValueError as e:
+                errors[d, m] = str(e)
+        result["config_errors"] = errors
+    if case == "rows":
+        from structuredetector_tpu_torch.models.network import init_model
+        from structuredetector_tpu_torch.train.steps import make_sharded_forward
+
+        weights = torch.load(args[0])
+        rows = create_mesh(1, 4, device)
+        model = init_model(mesh_config())
+        model.load_state_dict(weights)
+        forward = make_sharded_forward(model.to(device), rows, spatial=True)
+        images = {k: torch.from_numpy(forward_images(*v)).to(device)
+                  for k, v in ROW_INPUTS.items()}
+        for name in ROW_INPUTS:
+            result[name] = {k: v.cpu() for k, v in forward(images[name]).items()}
+        for name, (overrides, inputs) in ROW_VARIANTS.items():
+            forward = make_sharded_forward(init_model(mesh_config(**overrides)).to(device), rows,
+                                           spatial=True)
+            result[name] = {k: v.cpu() for k, v in forward(images[inputs]).items()}
+        grid = create_mesh(2, 2, device)
+        cfg = mesh_config()
+        result["spatial"] = mesh_step(cfg, grid, *jax_test_batch(cfg, 4), weights, spatial=True)
+        for fault in FAULTS:
+            with planted(fault):
+                result[fault] = mesh_step(cfg, grid, *jax_test_batch(cfg, 4), weights,
+                                          spatial=True)["grad"]
+        result["tp_2x2"] = mesh_step(small_config(), grid,
+                                     *train_batch(small_config(), GLOBAL_BATCH, 7, False))
+    if case == "card":
+        from structuredetector_tpu_torch.models.network import init_model
+        from structuredetector_tpu_torch.train.steps import make_sharded_forward
+
+        mesh = create_mesh(1, 2, device)
+        result["tp"] = mesh_step(small_config(), mesh,
+                                 *train_batch(small_config(), GLOBAL_BATCH, 7, False),
+                                 device=device)
+        forward = make_sharded_forward(init_model(mesh_config()).to(device), mesh, spatial=True)
+        images = torch.from_numpy(forward_images(*ROW_INPUTS["rows_32"])).to(device)
+        result["rows_32"] = {k: v.cpu() for k, v in forward(images).items()}
     if case == "step":
         result["augment"] = step_run(small_config(), "augment", device, rank, world)
     if case == "all":
@@ -307,16 +532,46 @@ def main(argv) -> None:
                 errors[n] = str(e)
         result["config_errors"] = errors
         result["mesh"] = (mesh.data, mesh.model, mesh.rank, mesh.world, mesh.backend)
-    elif case == "cli":
+    elif case in ("cli", "host_augment"):
         from structuredetector_tpu_torch.cli import train
 
+        batches = []
+        if case == "host_augment":
+            from structuredetector_tpu_torch.data import augment
+            from structuredetector_tpu_torch.train import trainer as trainer_module
+
+            init, step = augment.TrainAugmentation.__init__, trainer_module.train_step
+
+            def seeded_by_rank(self, config, rng=None, **kw):
+                init(self, config, np.random.default_rng(config.seed + 1000 * rank), **kw)
+
+            def recorded(state, images, kp, *a, **kw):
+                batches.append(fingerprint({"image": images, **kp}))
+                return step(state, images, kp, *a, **kw)
+
+            augment.TrainAugmentation.__init__ = seeded_by_rank
+            trainer_module.train_step = recorded
         os.chdir(args[0])
         trainer = train.main(args[1:])
-        result = {"fingerprint": fingerprint(trainer.model.state_dict()),
+        # whole under the model axis (a collective: the group is this
+        # worker's, so cli.train leaves it up)
+        result = {"fingerprint": fingerprint(trainer.state.state_dict()["model"]),
                   "steps": trainer.state.step, "save_dir": str(trainer.save_dir),
-                  "batches": len(trainer.train_loader)}
-    elif case != "step":
+                  "batches": len(trainer.train_loader), "batch_digests": batches}
+    elif case not in ("step", "model_axis", "rows", "card"):
         raise SystemExit(f"unknown case {case}")
+    # the model-axis runs: the whole tensors are compared on rank 0, the
+    # other ranks keep digests
+    for run in ("tp", "tp_head7", "tp_resnet50", "spatial", "tp_2x2"):
+        if run in result:
+            r = result[run]
+            del r["whole"]
+            r["fingerprint"] = fingerprint(r["state"])
+            if rank:
+                result[run] = {k: r[k] for k in ("loss", "fingerprint", "elements")}
+    if rank:
+        for fault in FAULTS:
+            result.pop(fault, None)
     # the step runs' full tensors are compared with one process only on
     # rank 0 (21M parameters each): the others keep their digests
     for run in ("augment", "plain"):
