@@ -118,7 +118,19 @@ of JAX or of the JAX package. Phases, one JSON line each:
    --nproc_per_node 2 -m structuredetector_tpu_torch.cli.train
    --model_parallel 2` for 2 epochs on the train phase's 64 + 16 PNGs
    (rank 0 alone writes, kernel A launched on each rank, `cli.evaluate`
-   on its checkpoint in one process);
+   on its checkpoint in one process); (e) "tp_forward":
+   `make_sharded_forward` on `create_mesh(1, 2)`, 2 ranks: a plain model
+   at batch 1 and 2, a `shard_model` model through its plan at batch 2
+   and with `spatial=True`, each rank's maps within 1e-5 of each map's
+   scale of one process's forward, decoded through kernel B on each rank
+   with anchor F1 1.0 against one process's, ms of each (median of 5);
+10d. library: `import structuredetector_tpu_torch` in a fresh process
+   loads no JAX, no `torch.utils.cpp_extension` and no `parallel/`;
+   every top-level name resolves; `structuredetector_tpu_torch.Predictor`
+   at full width (seeded weights, bf16) predicts a batch of 32 through
+   kernel B; the seeded full-width model written with
+   `save_reference_pth` loads strictly into a fresh SDNet
+   (`load_weights`) whose eval forward on the card is bit-identical;
 11. variants (main path of kernels A and B for the model variants): at
    full width (512x512, fpn_depth 128, bf16, labels.json, seeded
    weights) resnet18, resnet50, resnet34 with `--s2d_stem` and with
@@ -2431,9 +2443,59 @@ def _ma_decode(maps, cfg):
                                       dist_thresh=cfg.decoder_dist_thresh)
 
 
+# (e)'s cases of `make_sharded_forward` on the 1 x 2 mesh: (batch, the
+# model sharded by `shard_model`, spatial)
+MA_TP_FORWARDS = {"plain_b1": (1, False, False), "plain_b2": (2, False, False),
+                  "sharded_b2": (2, True, False), "sharded_spatial_b2": (2, True, True)}
+
+
+def _ma_tp_forwards(cfg) -> dict:
+    """(e)'s rank: `make_sharded_forward` of the seeded model on
+    `create_mesh(1, 2)` for each `MA_TP_FORWARDS` case, on the first rows
+    of the row forward's batch: the four maps, ms (median of 5 after one
+    warm-up, host clock, synchronized) and the decode of the maps through
+    kernel B, its launches counted from 0 at the case's start."""
+    import torch
+    import torch.distributed as dist
+
+    from structuredetector_tpu_torch.models.network import init_model
+    from structuredetector_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from structuredetector_tpu_torch.parallel.mesh import create_mesh
+    from structuredetector_tpu_torch.parallel.partition import shard_model
+    from structuredetector_tpu_torch.train.steps import make_sharded_forward
+
+    mesh = create_mesh(1, 2, "cuda")
+    images = _ma_forward_batch(cfg)
+    out = {}
+    for name, (batch, shard, spatial) in MA_TP_FORWARDS.items():
+        reset_launch_counts()
+        model = init_model(cfg).cuda()
+        plan = shard_model(model, mesh) if shard else None
+        forward = make_sharded_forward(model, mesh, spatial=spatial, partition=plan)
+        x = images[:batch].contiguous()
+        maps = forward(x)  # cuDNN's first use of each shape
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            maps = forward(x)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        decoded = _ma_decode(maps, cfg)
+        torch.cuda.synchronize()
+        out[name] = {"ms": sorted(times)[2], "ms_runs": times, "launches": launch_counts(),
+                     "maps": {k: v.cpu() for k, v in maps.items()},
+                     "decoded": {k: v.cpu() for k, v in decoded.items()}}
+        del model, forward, maps
+        torch.cuda.empty_cache()
+    return out
+
+
 def _ma_rank(out: Path, case: str) -> None:
     """One rank of the model_axis phase, joined from torchrun's environment:
-    "tp" (2 ranks) the 1 x 2 tensor-parallel steps; "rows" (4 ranks) the
+    "tp" (2 ranks) the 1 x 2 tensor-parallel steps; "tp_forward" (2 ranks)
+    `_ma_tp_forwards`; "rows" (4 ranks) the
     1 x 4 row forward at batch MA_ROW_BATCH and the decode of its gathered
     maps (kernel B, counted from 0 here), then the 2 x 2 spatial step,
     clean and with each `MA_FAULTS` fault planted."""
@@ -2452,6 +2514,8 @@ def _ma_rank(out: Path, case: str) -> None:
     result = {"backend": dist.get_backend(), "device": str(torch.cuda.current_device())}
     if case == "tp":
         result.update(_ma_steps(cfg, create_mesh(1, 2, "cuda"), False, MA_STEPS))
+    elif case == "tp_forward":
+        result.update(_ma_tp_forwards(cfg))
     elif case == "rows":
         images = _ma_forward_batch(cfg)
         forward = make_sharded_forward(init_model(cfg).cuda(), create_mesh(1, 4, "cuda"),
@@ -2559,8 +2623,10 @@ def phase_model_axis(card: str) -> dict:
     -m structuredetector_tpu_torch.cli.train --model_parallel 2` for 2
     epochs of the train phase's 64 + 16 PNGs: kernel A launched on each
     rank in validation, rank 0 alone writing, `cli.evaluate` loading its
-    `model_best_loss.msgpack` in one process. Returns the ranks' kernel
-    launches of the main paths, (b)'s decode and (d), summed."""
+    `model_best_loss.msgpack` in one process; (e) `make_sharded_forward`
+    on the 1 x 2 mesh (`_ma_tp_forward_part`), printed before (d)'s line,
+    which carries the phase's totals. Returns the ranks' kernel launches
+    of the main paths, (b)'s decode, (d) and (e), summed."""
     import subprocess
 
     import torch
@@ -2705,7 +2771,8 @@ def phase_model_axis(card: str) -> dict:
         summary = json.loads((tmp / "summary.json").read_text())
         if not evaluators or not all(math.isfinite(v) for v in summary.values()):
             raise AssertionError(f"cli.evaluate on the --model_parallel 2 checkpoint: {summary}")
-    total = {k: sum(c[k] for c in launches + row_launches) for k in launches[0]}
+        tp_forward = _ma_tp_forward_part(card, cfg, tmp)
+    total = {k: sum(c[k] for c in launches + row_launches + tp_forward) for k in launches[0]}
     emit({"phase": "model_axis", "part": "d_cli_train", "card": card,
           "cli_train": {"command": "torchrun --standalone --nproc_per_node 2 -m "
                                    "structuredetector_tpu_torch.cli.train --model_parallel 2",
@@ -2715,6 +2782,147 @@ def phase_model_axis(card: str) -> dict:
           "evaluate_summary": {k: summary[k] for k in ("anchor/f1_total", "kps/f1_total")},
           "launches": total, "seconds": time.perf_counter() - t_phase})
     return total
+
+
+def _ma_tp_forward_part(card: str, cfg, tmp: Path) -> list:
+    """(e) "tp_forward": `make_sharded_forward` without `spatial` on
+    `create_mesh(1, 2)`, 2 ranks sharing the card over gloo: a plain model
+    at batch 1 and 2, a `shard_model` model through its plan at batch 2,
+    and that model with `spatial=True` at batch 2. Each rank's four maps
+    within 1e-5 of each map's scale of one process's forward of the same
+    batch on the card, its decode through kernel B (launched on each
+    rank) with anchor F1 1.0 against one process's. Returns the ranks'
+    launch counts, each case's summed."""
+    import torch
+
+    from structuredetector_tpu_torch.models.network import init_model
+
+    t0 = time.perf_counter()
+    ranks = _run_ranks(tmp, 2, case="tp_forward")
+    ranks_s = time.perf_counter() - t0
+    images = _ma_forward_batch(cfg)
+    model = init_model(cfg).cuda().eval()
+    want, want_decoded, one_ms = {}, {}, {}
+    with torch.no_grad():
+        for batch in sorted({b for b, _, _ in MA_TP_FORWARDS.values()}):
+            x = images[:batch].permute(0, 3, 1, 2).contiguous()
+            maps = model(x)
+            times = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                maps = model(x)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t1) * 1e3)
+            one_ms[batch] = sorted(times)[2]
+            want[batch] = {k: v.cpu() for k, v in maps.items()}
+            want_decoded[batch] = {k: v.cpu() for k, v in _ma_decode(maps, cfg).items()}
+    del model
+    cases, launches = {}, []
+    for name, (batch, shard, spatial) in MA_TP_FORWARDS.items():
+        runs = [r[name] for r in ranks]
+        cases[name] = {
+            "batch": batch, "sharded": shard, "spatial": spatial,
+            "map_gap_of_scale_by_rank": [
+                {k: float((r["maps"][k] - v).abs().max() / v.abs().max())
+                 for k, v in want[batch].items()} for r in runs],
+            "anchor_f1_by_rank": [_anchor_f1(r["decoded"], want_decoded[batch]) for r in runs],
+            "ms_median_of_5_by_rank": [r["ms"] for r in runs],
+            "ms_runs_rank0": runs[0]["ms_runs"], "ms_1_process_fp32": one_ms[batch],
+            "launches_by_rank": [r["launches"] for r in runs]}
+        launches += [r["launches"] for r in runs]
+    emit({"phase": "model_axis", "part": "e_tp_forward", "card": card,
+          "mesh": "1 data x 2 model", "cases": cases, "ranks_wall_s": ranks_s,
+          "timing": "host clock, synchronized, median of 5 after one warm-up; 2 ranks "
+                    "sharing one card over gloo, not a scaling figure"})
+    bad = {name: c for name, c in cases.items()
+           if max(max(g.values()) for g in c["map_gap_of_scale_by_rank"]) > 1e-5
+           or min(c["anchor_f1_by_rank"]) < 1.0
+           or not all(n["sigmoid_nms_topk"] for n in c["launches_by_rank"])}
+    if bad:
+        raise AssertionError(f"(e) make_sharded_forward on 1 x 2 departs from one process or "
+                             f"did not decode through kernel B: {bad}")
+    return launches
+
+
+# the port's top-level names (JAX `__init__.py`'s), in its `__all__` order
+LIBRARY_NAMES = ["Box", "Config", "ImageAnnotation", "Keypoint", "Object", "Predictor",
+                 "ExportPredictor", "MicroBatcher", "Evaluator", "Trainer", "SDNet"]
+
+_CLEAN_IMPORT = (
+    "import json, sys\n"
+    "import structuredetector_tpu_torch\n"
+    "banned = ('jax', 'structuredetector_tpu', 'torch.utils.cpp_extension', "
+    "'structuredetector_tpu_torch.parallel')\n"
+    "print(json.dumps(sorted(m for m in sys.modules if any(m == b or m.startswith(b + '.') "
+    "for b in banned))))\n"
+)
+
+
+def phase_library(card: str) -> dict:
+    """The package API on the card: a clean import in a fresh process; every
+    top-level name resolved; `structuredetector_tpu_torch.Predictor` at
+    full width (resnet34, fpn_depth 128, 512x512, bf16, labels.json,
+    seeded weights) predicting a batch of 32 (kernel B, counted); the
+    seeded model through `save_reference_pth` and `load_weights` into a
+    fresh SDNet, whose eval forward on the card must be bit-identical.
+    Returns the Predictor path's launch counts."""
+    import subprocess
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    import structuredetector_tpu_torch as sdt
+    from structuredetector_tpu_torch.models import build_model, load_weights, save_reference_pth
+    from structuredetector_tpu_torch.ops.device_augment import normalize_images
+    from structuredetector_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    t_phase = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", _CLEAN_IMPORT], cwd=ROOT, capture_output=True,
+                          text=True, timeout=300)
+    if proc.returncode:
+        raise AssertionError(f"import structuredetector_tpu_torch: {proc.stderr[-2000:]}")
+    loaded = json.loads(proc.stdout.strip().splitlines()[-1])
+    if loaded:
+        raise AssertionError(f"importing the package loaded {loaded}")
+    if list(sdt.__all__) != LIBRARY_NAMES:
+        raise AssertionError(f"the top-level names are {sdt.__all__}")
+    resolved = {name: getattr(sdt, name).__module__ for name in LIBRARY_NAMES}
+
+    cfg = sdt.Config(labels_path=ROOT / "labels.json").finalize()
+    pixels = np.random.default_rng(23).integers(0, 256, (32, cfg.height, cfg.width, 3),
+                                                np.uint8)
+    reset_launch_counts()
+    predictor = sdt.Predictor(cfg)
+    annotations = predictor.predict_batch([Image.fromarray(p) for p in pixels])
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    if len(annotations) != 32 or not launches["sigmoid_nms_topk"]:
+        raise AssertionError(f"Predictor through the top-level name: {len(annotations)} "
+                             f"annotations, launches {launches}")
+    model = predictor.model.eval()
+    with tempfile.TemporaryDirectory(prefix="sdnet-library-") as tmp:
+        path = save_reference_pth(model, Path(tmp) / "sdnet.pth")
+        pth_mb = path.stat().st_size / 1e6
+        fresh = load_weights(build_model(cfg), path).cuda().eval()
+    feed = normalize_images(torch.from_numpy(pixels[:8]).cuda().float() / 255.0)
+    feed = feed.permute(0, 3, 1, 2).contiguous()
+    with torch.no_grad():
+        a, b = model(feed, raw_output=True), fresh(feed, raw_output=True)
+    identical = bool(torch.equal(a, b))
+    emit({"phase": "library", "card": card, "clean_import": loaded == [],
+          "resolved": resolved, "device": str(predictor.device),
+          "predictor": {"model": f"SDNet resnet34 fpn_depth={cfg.fpn_depth} "
+                                 f"{cfg.width}x{cfg.height} bf16, seeded init",
+                        "batch": 32, "annotations": len(annotations),
+                        "launches": launches},
+          "reference_pth": {"mb": pth_mb, "forward_batch": 8, "bit_identical": identical},
+          "seconds": time.perf_counter() - t_phase})
+    if not identical:
+        raise AssertionError("the .pth round trip changed the forward: "
+                             f"{float((a - b).abs().max())}")
+    return launches
 
 
 VARIANTS = {"resnet18": dict(backbone="resnet18"), "resnet50": dict(backbone="resnet50"),
@@ -3093,6 +3301,7 @@ def main(argv=None) -> int:
     by_path["train"] = phase_train(card)
     by_path["data_parallel"] = phase_data_parallel(card)
     by_path["model_axis"] = phase_model_axis(card)
+    by_path["library"] = phase_library(card)
     with tempfile.TemporaryDirectory(prefix="sdnet-variants-") as work:
         by_path["variants"], variant_ms = phase_variants(card, Path(work))
     forward_ms["resnet50 bf16"] = variant_ms["resnet50"]

@@ -22,8 +22,6 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from .annotations import get_unique_color_map
-from .models.resnet import ARCHS
-from .parallel.mesh import mesh_shape, world_size
 
 DEFAULT_SEED = 926354916  # reference args.py:257
 
@@ -213,6 +211,11 @@ class Config:
             raise ValueError(
                 f"unknown hm_loss_fn {self.hm_loss_fn!r}: pick 'focal' or 'mse'"
             )
+        # imported here: the package's import of Config loads neither
+        # the models nor torch.distributed's groups
+        from .models.resnet import ARCHS
+        from .parallel.mesh import mesh_shape, world_size
+
         # data x model must be the number of ranks torchrun started
         mesh_shape(self.data_parallel, self.model_parallel, world_size())
         if self.backbone not in ARCHS:

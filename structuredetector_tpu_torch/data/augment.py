@@ -13,7 +13,9 @@ The port of `structuredetector_tpu/data/augment.py` (reference
 - `ValidationAugmentation` = Resize -> Normalize -> Flatten
   (`transforms.py:253-267`);
 - `PredictionTransformation` = Resize -> Normalize only
-  (`transforms.py:270-286`).
+  (`transforms.py:270-286`);
+- `RandomResize`: the reference's per-sample alternate to the epoch's
+  re-roll (`transforms.py:71-92`).
 
 Where the host does no per-pixel augmentation (validation,
 `--no_augmentation`, the device-augment feed), `native_batch_apply`
@@ -110,6 +112,32 @@ class RandomVerticalFlip(RandomHorizontalFlip):
         if self._trigger():
             return image.transpose(Image.FLIP_TOP_BOTTOM), vflip_annotation(target, image.size)
         return image, target
+
+
+class RandomResize:
+    """Per-sample random resize over ratios of (width, height), each size
+    snapped down to a multiple of 32, at least 32 (the reference's unused
+    alternate, `transforms.py:71-92`, as JAX `data/augment.py:113-134`
+    snaps it). Each sample takes its own shape; the trainer's multi-scale
+    buckets keep one shape a batch instead. Draws from its own `rng`."""
+
+    def __init__(self, config, ratios=None, rng: Optional[np.random.Generator] = None):
+        if ratios is None:
+            ratios = [1 + 1 / 16 * r for r in range(-4, 5)]
+        self.ratios = list(ratios)
+        self.width = config.width
+        self.height = config.height
+        self.rng = rng or np.random.default_rng()
+
+    def __call__(self, image, target: ImageAnnotation):
+        from PIL import Image
+
+        ratio = self.ratios[int(self.rng.integers(len(self.ratios)))]
+        width = max(32, int(ratio * self.width / 32) * 32)
+        height = max(32, int(ratio * self.height / 32) * 32)
+        resized = image.resize((width, height), Image.BILINEAR)
+        # in place, as JAX's: the annotation is the caller's to hand on
+        return resized, target.resize(image.size, (width, height))
 
 
 class RandomColorJitter:

@@ -2,16 +2,16 @@
 
 The port's own copy of `structuredetector_tpu/data/dataset.py`:
 
-- `CropDataset` over a directory of `.json` annotation files (sorted),
-  images opened with PIL, true `img_size` stamped (reference
-  `dataset.py:13-49`); with `--native_io` and the device-augment feed an
+- `CropDataset` over one or more directories of `.json` annotation
+  files (sorted), images opened with PIL, true `img_size` stamped
+  (reference `dataset.py:13-49`), a list of transforms composed; with `--native_io` and the device-augment feed an
   item decodes through the native library instead (`data/native.py`);
   `raw_item` gives the image path and annotation undecoded, the feed of
   the whole-batch native loader; `localize_image_names()` rewrites the
   JSONs so `image_path` points next to each (`dataset.py:51-55`), as the
-  trainer asks,
-- `PredictionDataset` over unlabeled `.jpg`/`.jpeg`/`.png` images
-  (`dataset.py:168-184`),
+  trainer asks; `part_count_histogram()` and altair's `histogram()`,
+- `PredictionDataset` over unlabeled `.jpg`/`.jpeg`/`.png` images, each
+  through an optional transform (`dataset.py:168-184`),
 - `LabelStats`/`DatasetStats` summaries (`dataset.py:187-237`).
 """
 
@@ -23,6 +23,7 @@ from typing import List
 
 from ..annotations import ImageAnnotation, files_with_extension
 from . import native
+from .augment import Compose
 
 
 def _open_rgb(path):
@@ -35,10 +36,17 @@ def _open_rgb(path):
 
 
 class CropDataset:
-    def __init__(self, config, directory, transform=None):
+    def __init__(self, config, directories, transform=None):
         self.config = config
-        self.transform = transform
-        self.files = sorted(files_with_extension(directory, ".json"))
+        self.transform = Compose(transform) if isinstance(transform, list) else transform
+        if isinstance(directories, (str, Path)):
+            directories = [directories]
+        elif not isinstance(directories, list):
+            raise ValueError(
+                f"expected a directory path or a list of them, got "
+                f"{type(directories).__name__}"
+            )
+        self.files = sorted(f for d in directories for f in files_with_extension(d, ".json"))
 
     def __len__(self):
         return len(self.files)
@@ -70,6 +78,40 @@ class CropDataset:
             annotation.image_path = file.parent / annotation.image_name
             annotation.save_json(file.parent)
 
+    def part_count_histogram(self):
+        """Per-label part-count histogram as {label: {n_parts: count}}: the
+        data behind the reference's altair `histogram()`
+        (`dataset.py:133-165`)."""
+        hist: dict = defaultdict(lambda: defaultdict(int))
+        for file in self.files:
+            annotation = ImageAnnotation.from_json(file, self.config.anchor_name)
+            for obj in annotation.objects:
+                hist[obj.name][obj.nb_parts] += 1
+        return {k: dict(v) for k, v in hist.items()}
+
+    def histogram(self):
+        """Show the part-count histogram with altair, imported here as the
+        reference does (`dataset.py:134-135`): it is not a dependency."""
+        import altair as alt
+        import pandas as pd
+
+        data = [
+            {"label": label, "parts": n, "count": c}
+            for label, counts in self.part_count_histogram().items()
+            for n, c in counts.items()
+        ]
+        df = pd.DataFrame(data)
+        charts = [
+            alt.Chart(df[df.label == label], width=600, height=400)
+            .mark_rect()
+            .encode(alt.X("parts:O"), alt.Y("count:Q"))
+            for label in df.label.unique()
+        ]
+        combined = charts[0]
+        for c in charts[1:]:
+            combined = combined | c
+        combined.show()
+
     def stats(self) -> "DatasetStats":
         s = DatasetStats()
         for file in self.files:
@@ -82,20 +124,24 @@ class CropDataset:
 
 
 class PredictionDataset:
-    def __init__(self, directory):
+    def __init__(self, directory, transform=None, extensions=(".jpg", ".jpeg", ".png")):
         self.images: List[Path] = sorted(
             f
-            for ext in (".jpg", ".jpeg", ".png")
+            for ext in extensions
             for f in files_with_extension(directory, ext)
         )
+        self.transform = transform
 
     def __len__(self):
         return len(self.images)
 
     def __getitem__(self, index):
+        """{"img": the RGB image (through `transform` if any), "img_size":
+        its original (w, h), "path"}."""
         path = self.images[index]
         img = _open_rgb(path)
-        return {"img": img, "img_size": img.size, "path": path}
+        out = self.transform(img) if self.transform is not None else img
+        return {"img": out, "img_size": img.size, "path": path}
 
 
 class LabelStats:

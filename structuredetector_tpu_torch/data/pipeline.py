@@ -117,9 +117,6 @@ def collate(samples: Sequence[dict]) -> dict:
     return batch
 
 
-PREFETCH_BATCHES = 4  # batches of sample loads in flight ahead of the consumer
-
-
 class Loader:
     """Batches of `dataset[i]`.
 
@@ -127,14 +124,15 @@ class Loader:
     an epoch is `np.random.default_rng((seed, epoch))`'s shuffle, a pure
     function of the epoch that `set_epoch` pins: a resumed run replays the
     batch order of the unbroken run with no random state saved.
-    `drop_last` drops a last, smaller batch. With `num_workers > 0`,
-    every sample load is a task on a thread pool of that size (PIL's
-    decode and resize and the numpy work release the GIL), and up to
-    `PREFETCH_BATCHES` batches of loads stay in flight.
+    `drop_last` drops a last, smaller batch. `collate_fn` makes a batch of
+    its samples. With `num_workers > 0`, every sample load is a task on a
+    thread pool of that size (PIL's decode and resize and the numpy work
+    release the GIL), and up to `prefetch_batches` (at least 1) batches
+    of loads stay in flight.
 
     With `batch_fetch`, a callable from a batch's indices to its collated
     dict (`native_batch_fetch`), whole batches are made on one
-    coordinator thread, up to `PREFETCH_BATCHES` ahead; the parallelism
+    coordinator thread, up to `prefetch_batches` ahead; the parallelism
     lives inside the call (the native loader's own threads).
 
     With `process_count` > 1, `batch_size` is the global batch: every
@@ -144,7 +142,8 @@ class Loader:
 
     def __init__(self, dataset, batch_size: int = 1, shuffle: bool = False,
                  drop_last: bool = False, num_workers: int = 0, seed: int = 0,
-                 batch_fetch=None, process_index: int = 0, process_count: int = 1):
+                 collate_fn=collate, batch_fetch=None, prefetch_batches: int = 4,
+                 process_index: int = 0, process_count: int = 1):
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
         if batch_size % process_count:
@@ -158,7 +157,9 @@ class Loader:
         self.drop_last = drop_last
         self.num_workers = num_workers
         self.seed = seed
+        self.collate_fn = collate_fn
         self.batch_fetch = batch_fetch
+        self.prefetch_batches = max(1, prefetch_batches)
         self._epoch = 0
 
     def set_epoch(self, epoch: int) -> None:
@@ -192,7 +193,7 @@ class Loader:
             return
         if self.num_workers <= 0:
             for idxs in batches:
-                yield collate([self.dataset[i] for i in idxs])
+                yield self.collate_fn([self.dataset[i] for i in idxs])
             return
         with ThreadPoolExecutor(max_workers=self.num_workers) as pool:
             inflight: collections.deque = collections.deque()
@@ -203,18 +204,18 @@ class Loader:
                 if idxs is not None:
                     inflight.append([pool.submit(self.dataset.__getitem__, i) for i in idxs])
 
-            for _ in range(PREFETCH_BATCHES):
+            for _ in range(self.prefetch_batches):
                 stage_next()
             while inflight:
                 futures = inflight.popleft()
                 samples = [f.result() for f in futures]
                 stage_next()
-                yield collate(samples)
+                yield self.collate_fn(samples)
 
     def _iter_batch_fetch(self, batches):
         """Whole batches made ahead on a coordinator thread; an error
         there is raised here, at the batch it struck."""
-        staged: queue.Queue = queue.Queue(maxsize=PREFETCH_BATCHES)
+        staged: queue.Queue = queue.Queue(maxsize=self.prefetch_batches)
         stop = threading.Event()
         done = object()
 

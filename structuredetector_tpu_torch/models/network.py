@@ -4,9 +4,10 @@ The port of `structuredetector_tpu/models/network.py`; the structure and
 the module names are the reference `Network`'s
 (`/root/reference/src/sdnet/model/network.py:32-87`):
 
-- `adpater` + `down1..down4`: the encoder (stages C2..C5), resnet34 as
-  in the reference, or resnet18 / resnet50 (`backbone`), with the 7x7
-  or the space-to-depth stem (`s2d_stem`),
+- `adpater` + `down1..down4`: the encoder (stages C2..C5,
+  `ResNetEncoder`, which `SDNet` extends), resnet34 as in the
+  reference, or resnet18 / resnet50 (`backbone`), with the 7x7 or the
+  space-to-depth stem (`s2d_stem`),
 - `up1`: 1x1 conv C5 -> fpn_depth (512 channels, 2048 for resnet50),
 - `up2..up4`: FPN blocks: nearest x2 upsample + 1x1 lateral conv on the
   skip + sum + 3x3 conv(bias=False) + BN + ReLU,
@@ -98,6 +99,18 @@ def _precision(dtype: torch.dtype, device: torch.device):
     return no_tf32(dtype, device)
 
 
+def check_whole(conv: nn.Module) -> None:
+    """Raise a ValueError where `conv` holds a slice of its output channels
+    (`parallel.partition.shard_model` keeps `out_channels` whole and the
+    rank's slice in the weight): such a model runs only through its plan,
+    which cuDNN would otherwise refuse with a channel count."""
+    if conv.weight.shape[0] != conv.out_channels:
+        raise ValueError(
+            f"this conv holds {conv.weight.shape[0]} of its {conv.out_channels} output "
+            "channels: a model sharded by parallel.partition.shard_model runs through the "
+            "ChannelPlan that shard_model returned (partition=)")
+
+
 class PlainPlan:
     """How `SDNet.forward`'s walk runs each op in one process: the module
     itself on the whole tensor. The plans of `parallel.partition` place
@@ -110,9 +123,13 @@ class PlainPlan:
         return a
 
     def conv(self, m: nn.Module, a: torch.Tensor) -> torch.Tensor:
+        check_whole(m)
         return m(a)
 
-    bn = maxpool = conv
+    def bn(self, m: nn.Module, a: torch.Tensor) -> torch.Tensor:
+        return m(a)
+
+    maxpool = bn
 
     def add(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return a + b
@@ -144,18 +161,18 @@ def _block(plan, block: nn.Module, a):
     return plan.relu(plan.add(y, identity))
 
 
-class SDNet(nn.Module):
-    """Anchor+parts structure detection network, output stride 4."""
+class ResNetEncoder(nn.Module):
+    """The encoder (JAX `ResNet34Encoder`, which builds every `ARCHS`
+    backbone despite its name): the stem `adpater` (the 7x7/2 conv or the
+    space-to-depth one, BN, ReLU, the 3x3/2 max pool), then the stages
+    `down1..down4`, under the reference's module names. `forward` returns
+    (C2, C3, C4, C5) at strides 4, 8, 16 and 32, NCHW, in the caller's
+    precision. `SDNet` is one, so its state_dict keys stay the
+    reference's."""
 
-    def __init__(self, n_labels: int, n_parts: int, fpn_depth: int = 128,
-                 in_channels: int = 3, dtype: torch.dtype = torch.float32,
-                 int8: bool = False, backbone: str = "resnet34", s2d_stem: bool = False,
-                 head_conv: int = 0):
+    def __init__(self, in_channels: int = 3, backbone: str = "resnet34",
+                 s2d_stem: bool = False):
         super().__init__()
-        self.n_labels = n_labels
-        self.n_parts = n_parts
-        self.dtype = dtype
-        self.int8 = int8
         self.backbone = backbone
         self.adpater = stem(in_channels, s2d=s2d_stem)
         block, stage_sizes = ARCHS[backbone]
@@ -163,6 +180,35 @@ class SDNet(nn.Module):
         for i, (n_blocks, width) in enumerate(zip(stage_sizes, STAGE_WIDTHS), start=1):
             setattr(self, f"down{i}", stage(block, in_ch, width, n_blocks, 1 if i == 1 else 2))
             in_ch = width * block.expansion
+
+    def encode(self, plan, a) -> list:
+        """The encoder's walk under `plan` from the entered input `a`: the
+        four stages' outputs."""
+        conv, bn, _, pool = self.adpater
+        a = plan.maxpool(pool, plan.relu(plan.bn(bn, plan.conv(conv, a))))
+        stages = []
+        for i in range(1, 5):
+            for block in getattr(self, f"down{i}"):
+                a = _block(plan, block, a)
+            stages.append(a)
+        return stages
+
+    def forward(self, x: torch.Tensor):
+        return tuple(self.encode(PLAIN, x))
+
+
+class SDNet(ResNetEncoder):
+    """Anchor+parts structure detection network, output stride 4."""
+
+    def __init__(self, n_labels: int, n_parts: int, fpn_depth: int = 128,
+                 in_channels: int = 3, dtype: torch.dtype = torch.float32,
+                 int8: bool = False, backbone: str = "resnet34", s2d_stem: bool = False,
+                 head_conv: int = 0):
+        super().__init__(in_channels, backbone, s2d_stem)
+        self.n_labels = n_labels
+        self.n_parts = n_parts
+        self.dtype = dtype
+        self.int8 = int8
         # the FPN reads C2..C5 at the block's widths (resnet50: 256..2048)
         c2, c3, c4, c5 = stage_channels(backbone)
         self.up1 = nn.Conv2d(c5, fpn_depth, 1)
@@ -194,14 +240,7 @@ class SDNet(nn.Module):
             raise ValueError("an int8 model is not partitioned over the model axis")
         plan = PLAIN if partition is None else partition
         with _precision(self.dtype, x.device):
-            conv, bn, _, pool = self.adpater
-            a = plan.maxpool(pool, plan.relu(plan.bn(bn, plan.conv(conv, plan.enter(x)))))
-            stages = []
-            for i in range(1, 5):
-                for block in getattr(self, f"down{i}"):
-                    a = _block(plan, block, a)
-                stages.append(a)
-            c2, c3, c4, c5 = stages
+            c2, c3, c4, c5 = self.encode(plan, plan.enter(x))
             f = plan.conv(self.up1, c5)
             for up, skip in ((self.up2, c4), (self.up3, c3), (self.up4, c2)):
                 f = plan.add(plan.upsample(f), plan.conv(up.lateral, skip))

@@ -1,11 +1,14 @@
 """Weights for the port's SDNet: reference-layout `.pth` files, the JAX
 package's `.msgpack` checkpoints, and the carry-over between the two
-layouts.
+layouts; the counterpart of JAX `models/torch_bridge.py` and
+`models/torch_export.py`.
 
 The port's modules use the reference's names (`adpater.{0,1}`,
 `down1..4`, `up1`, `up{2,3,4}.{lateral,conv.0,conv.1}`, `head.conv`), so
 a `.pth` written by the reference, or by the JAX package's
-`save_reference_pth`, loads with `strict=True`. A `.msgpack` written by
+`save_reference_pth`, loads with `strict=True`, and the port writes one
+the reference loads so (`save_reference_pth`, JAX
+`torch_export.py:50-119`). A `.msgpack` written by
 the JAX package's `save_params` (the trainer's `model_best_*.msgpack`)
 is read without flax (`models.msgpack`) and mapped by
 `state_dict_from_jax`. A checkpoint of another architecture (other
@@ -263,6 +266,55 @@ def save_msgpack(weights, path) -> Path:
     sd = weights.state_dict() if isinstance(weights, torch.nn.Module) else weights
     tmp = path.with_name(path.name + ".tmp")
     tmp.write_bytes(msgpack.dumps(jax_tree_from_state_dict(sd)))
+    os.replace(tmp, path)
+    return path
+
+
+def export_reference_state_dict(weights) -> "OrderedDict[str, torch.Tensor]":
+    """A model's weights (the port's SDNet or its state_dict, whole: a
+    sharded model's `ChannelPlan.full_state_dict`) as the reference's
+    `Network` state_dict on the CPU, which it loads strictly (JAX
+    `torch_export.py::export_sdnet_state_dict`): the port's keys, each
+    `num_batches_tracked` a 0-d int64 0. Only the reference's model is
+    written: `--head_conv`, resnet18 and resnet50 raise with JAX's
+    reasons, a prequantized int8 model raises too."""
+    sd = weights.state_dict() if isinstance(weights, torch.nn.Module) else weights
+    if "head_hidden.weight" in sd:
+        raise ValueError(
+            "--head_conv deep head has no reference counterpart; only the "
+            "1x1 head is exportable to the reference layout"
+        )
+    if "head.conv.weight" not in sd:
+        raise ValueError("unrecognized head structure")
+    n_blocks = len(_blocks(sd, 1))
+    if n_blocks != 3:
+        raise ValueError(
+            f"encoder has {n_blocks} layer1 blocks; only resnet34 (3) matches the "
+            "reference Network"
+        )
+    if "down1.0.downsample.0.weight" in sd:
+        raise ValueError("bottleneck (resnet50-style) encoder is not "
+                         "representable in the reference layout")
+    out: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    for key, value in sd.items():
+        if key.endswith(".num_batches_tracked"):
+            out[key] = torch.tensor(0, dtype=torch.long)
+        elif not value.is_floating_point() or key.endswith("_scale"):
+            raise ValueError(f"{key}: a prequantized int8 model has no reference "
+                             "counterpart; export the float model")
+        else:
+            out[key] = value.detach().cpu().clone()
+    return out
+
+
+def save_reference_pth(weights, path) -> Path:
+    """Write `export_reference_state_dict(weights)` with `torch.save`: a
+    `.pth` the reference's `Network.load_state_dict` and the port's
+    `load_weights` load strictly (JAX `torch_export.py::
+    save_reference_pth`). The file is replaced atomically."""
+    path = Path(path)
+    tmp = path.with_name(path.name + ".tmp")
+    torch.save(export_reference_state_dict(weights), tmp)
     os.replace(tmp, path)
     return path
 

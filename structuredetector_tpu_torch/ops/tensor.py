@@ -18,9 +18,14 @@ import torch.nn.functional as F
 CLAMP_EPS = 1e-6  # reference utils.py:361
 
 
+def clamp_in_0_1(x: torch.Tensor) -> torch.Tensor:
+    """x clamped to [1e-6, 1 - 1e-6] (JAX `ops/tensor.py:24-25`)."""
+    return torch.clamp(x, CLAMP_EPS, 1.0 - CLAMP_EPS)
+
+
 def clamped_sigmoid(x: torch.Tensor) -> torch.Tensor:
     """sigmoid clamped to [1e-6, 1 - 1e-6] (reference utils.py:355-361)."""
-    return torch.clamp(torch.sigmoid(x), CLAMP_EPS, 1.0 - CLAMP_EPS)
+    return clamp_in_0_1(torch.sigmoid(x))
 
 
 def plateau_nms(heatmaps: torch.Tensor, window: int = 5) -> torch.Tensor:

@@ -1,4 +1,7 @@
-"""Data parallelism across processes (torchrun, one rank a device)."""
+"""The ("data", "model") mesh across processes (torchrun, one rank a
+device): data parallelism, and on the model axis output-channel tensor
+parallelism and row partitioning (`parallel.partition`, imported on its
+own)."""
 
 from .mesh import (  # noqa: F401
     DATA_AXIS,

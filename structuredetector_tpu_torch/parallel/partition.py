@@ -53,6 +53,7 @@ the convolutions are cuDNN's. Int8 models are not partitioned.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Dict, List
 
@@ -61,7 +62,7 @@ import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..models.network import upsample2x_nearest
+from ..models.network import check_whole, upsample2x_nearest
 from ..models.resnet import S2dStemConv, space_to_depth
 from .mesh import Mesh, param_shardings, shards_on_cout
 
@@ -311,6 +312,17 @@ class ChannelPlan(_Plan):
                 p.grad.div_(self.size)
 
 
+def _replace(model: nn.Module, name: str, value: torch.Tensor) -> None:
+    """Put `value` in place of the parameter or buffer `name` of `model`."""
+    owner, leaf = name.rsplit(".", 1)
+    module = model.get_submodule(owner)
+    t = getattr(module, leaf)
+    if isinstance(t, nn.Parameter):
+        setattr(module, leaf, nn.Parameter(value, requires_grad=t.requires_grad))
+    else:
+        module.register_buffer(leaf, value)
+
+
 def shard_model(model: nn.Module, mesh: Mesh) -> ChannelPlan:
     """Keep on this rank only its Cout slice of every tensor that JAX's
     `param_shardings` places on the model axis (real, smaller parameters
@@ -318,19 +330,26 @@ def shard_model(model: nn.Module, mesh: Mesh) -> ChannelPlan:
     every forward of the model then takes (`SDNet.forward(partition=)`)
     and its train state keeps (`TrainState.partition`). Build the
     optimizer after this: its moments are then slices too."""
-    names = param_shardings(model.state_dict(), mesh.model)
+    sd = model.state_dict()
+    names = param_shardings(sd, mesh.model)
     plan = ChannelPlan(mesh, names)
     with torch.no_grad():
         for name in names:
-            owner, leaf = name.rsplit(".", 1)
-            module = model.get_submodule(owner)
-            t = getattr(module, leaf)
-            local = plan.local(t).clone()
-            if isinstance(t, nn.Parameter):
-                setattr(module, leaf, nn.Parameter(local, requires_grad=t.requires_grad))
-            else:
-                module.register_buffer(leaf, local)
+            _replace(model, name, plan.local(sd[name]).clone())
     return plan
+
+
+def unshard_model(model: nn.Module, plan: ChannelPlan) -> nn.Module:
+    """A copy of `model`, which `shard_model` sharded with `plan`, that holds
+    the whole of every tensor: the replicated model that JAX's GSPMD
+    program is, on `shard_variables` too. A collective of the model group:
+    every rank calls it."""
+    whole = plan.full_state_dict(model.state_dict())
+    replica = copy.deepcopy(model)
+    with torch.no_grad():
+        for name in plan.names:
+            _replace(replica, name, whole[name])
+    return replica
 
 
 class RowPlan(_Plan):
@@ -378,6 +397,7 @@ class RowPlan(_Plan):
         return Part(_Gather.apply(a.t, 2, self, True), False)
 
     def conv(self, m: nn.Conv2d, a: Part) -> Part:
+        check_whole(m)
         if not a.split:
             return Part(m(a.t), False)
         if isinstance(m, S2dStemConv):

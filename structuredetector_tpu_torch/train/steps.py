@@ -35,7 +35,8 @@ statistics are the whole mesh's, the augmentation and the targets are
 the data rank's whole batch's, the loss reads the gathered head output,
 and DDP averages every gradient over the whole mesh.
 `make_sharded_forward` is the inference forward over a mesh (JAX
-`steps.py:222-245`), with the rows split under `spatial=True`.
+`steps.py:222-245`): the batch over the data axis, a sharded model
+through its plan, the rows over the model axis under `spatial=True`.
 """
 
 from __future__ import annotations
@@ -51,7 +52,7 @@ from ..ops.device_augment import device_augment, step_generator
 from ..ops.encode import EncodedTargets, encode_targets
 from ..ops.losses import sdnet_loss
 from ..parallel.mesh import all_reduce_sum, rank, world_size
-from ..parallel.partition import RowPlan, all_gather
+from ..parallel.partition import RowPlan, all_gather, unshard_model
 from .state import TrainState
 
 
@@ -149,30 +150,38 @@ def eval_step(model: torch.nn.Module, images: torch.Tensor, kp: Dict[str, torch.
     return outputs, stats, {"anchor_hm": targets.anchor_hm, "part_hm": targets.part_hm}
 
 
-def make_sharded_forward(model: torch.nn.Module, mesh=None, spatial: bool = False):
+def make_sharded_forward(model: torch.nn.Module, mesh=None, spatial: bool = False,
+                         partition=None):
     """Inference over a mesh (JAX `make_sharded_forward`): `forward(images)`
-    takes the whole (B, H, W, 3) normalized batch on every rank, runs the
-    eval-mode model on this rank's contiguous slice, and all-gathers the
-    head outputs, so every rank returns what one forward of the batch
-    gives ('anchor_hm', 'part_hm', 'offsets', 'embeddings'). The batch
-    splits over every rank of the mesh, or with `spatial=True` over its
-    data axis while the image rows split over its model axis (a giant
-    image rides several devices; `parallel.partition.RowPlan`). Without a
-    mesh of more than one rank it is one forward. B must divide by the
-    ranks the batch splits over."""
-    if mesh is None or mesh.size == 1:
-        ranks, index, group, plan = 1, 0, None, None
-    elif spatial:
-        ranks, index, group, plan = mesh.data, mesh.data_index, mesh.data_group, RowPlan(mesh)
-    else:
-        ranks, index, group, plan = mesh.size, mesh.rank, None, None
+    takes the whole (B, H, W, 3) normalized batch on every rank and
+    returns on every rank what one forward of the batch gives
+    ('anchor_hm', 'part_hm', 'offsets', 'embeddings'). The batch splits
+    over the mesh's data axis (B must divide by it): each rank runs its
+    data index's contiguous slice in eval mode, every rank of a model
+    group the same images, and the head outputs are all-gathered over the
+    data group. `partition` is the plan of a model sharded over the model
+    axis (`parallel.partition.shard_model`), which every forward then
+    takes; a sharded model without it raises a ValueError. With
+    `spatial=True` the image rows split over the model axis too
+    (`parallel.partition.RowPlan`: a giant image rides several devices),
+    gathered along the rows before the batch; a sharded model then runs
+    as a replica with its whole weights, gathered once here (a collective
+    of the model group), as JAX's program runs on `shard_variables`.
+    Without a mesh of more than one rank it is one forward."""
+    if spatial and partition is not None:
+        model, partition = unshard_model(model, partition), None
+    ranks, index, group, plan = 1, 0, None, partition
+    if mesh is not None and mesh.size > 1:
+        ranks, index, group = mesh.data, mesh.data_index, mesh.data_group
+        if spatial:
+            plan = RowPlan(mesh)
 
     @torch.no_grad()
     def forward(images: torch.Tensor) -> Dict[str, torch.Tensor]:
         model.eval()
         b = images.shape[0]
         if b % ranks:
-            raise ValueError(f"batch {b} does not split over {ranks} ranks")
+            raise ValueError(f"batch {b} does not split over the {ranks} ranks of the data axis")
         local = b // ranks
         part = images[index * local:(index + 1) * local].permute(0, 3, 1, 2).contiguous()
         head = model(part, raw_output=True, partition=plan)

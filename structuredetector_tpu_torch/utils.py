@@ -1,11 +1,13 @@
-"""Device selection for the port's entry points, and the directory its
-native builds live in."""
+"""Device selection for the port's entry points, the directory its
+native builds live in, and the host helpers of JAX `utils.py`
+(reference `utils.py:311-338`)."""
 
 from __future__ import annotations
 
 import os
 from pathlib import Path
 
+import numpy as np
 import torch
 
 # The CUDA kernels (`ops/kernels/_build.py`) and the native I/O library
@@ -57,3 +59,35 @@ def progress(iterable, total: int, desc: str, every: int = 10, show: bool = True
         yield item
         if show and (i == 1 or i % every == 0 or i == total):
             print(f"{desc}: {i}/{total}", file=sys.stderr, flush=True)
+
+
+class AverageMeter:
+    """Running average accumulator (reference utils.py:311-324)."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self):
+        self.sum = 0.0
+        self.count = 0
+        self.avg = 0.0
+
+    def update(self, value):
+        self.sum += value
+        self.count += 1
+        self.avg = self.sum / self.count
+        return self.avg
+
+
+def set_seed(seed: int = 926354916) -> torch.Generator:
+    """Seed numpy's global RNG and torch's (the reference seeds torch,
+    numpy and CUDA globally, utils.py:335-338) and return a
+    `torch.Generator` seeded with `seed`. JAX `set_seed` returns a JAX
+    root PRNG key there, which the port, importing no JAX, cannot."""
+    np.random.seed(seed % (2**32))
+    torch.manual_seed(seed)
+    return torch.Generator().manual_seed(seed)
+
+
+def mkdir_if_needed(directory):
+    Path(directory).mkdir(exist_ok=True)

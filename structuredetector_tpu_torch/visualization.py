@@ -9,7 +9,8 @@ mirrors upstream StructureDetector's `src/sdnet/utils/visualization.py`:
 - `draw_kp_and_emb`: raw top-k keypoints with embedding rays
   (`visualization.py:93-146`),
 - `draw_embeddings`: dense embedding quiver, every 4th cell
-  (`visualization.py:149-169`).
+  (`visualization.py:149-169`),
+- `draw_keypoints`: flat keypoint dots (`visualization.py:172-193`).
 
 Inputs are numpy arrays (HWC, one image) or PIL images; nothing here
 touches the device, so callers copy tensors to the host first. Heatmaps
@@ -142,4 +143,23 @@ def draw_embeddings(image, embeddings: np.ndarray, config,
             y1 = y * config.down_ratio
             d.line([x1, y1, float(emb[y, x, 0] + x1), float(emb[y, x, 1] + y1)],
                    fill=(255, 0, 0), width=thickness)
+    return img
+
+
+def draw_keypoints(image, keypoints, config) -> Image.Image:
+    """Flat keypoint dots in their label's or part's colour
+    (`visualization.py:172-193`); a kind of neither raises ValueError."""
+    img = to_pil(image)
+    d = ImageDraw.Draw(img)
+    img_w, img_h = img.size
+    offset = max(1, int(min(img_w, img_h) / 100))
+    for kp in keypoints:
+        if kp.kind in config.labels:
+            color = config.label_color_map[kp.kind]
+        elif kp.kind in config.parts:
+            color = config.part_color_map[kp.kind]
+        else:
+            raise ValueError(f"unknown keypoint kind {kp.kind!r}")
+        d.ellipse([kp.x - offset, kp.y - offset, kp.x + offset, kp.y + offset],
+                  fill=color, outline=color)
     return img

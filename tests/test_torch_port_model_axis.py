@@ -11,7 +11,9 @@ step over `create_mesh(1, 2)` (JAX's own tensor-parallel program) and
 `make_forward`, on JAX tests/test_parallel.py's configuration (32x32,
 `fpn_depth` 16, fp32, one label and one part kind: a 6-channel head) and
 inputs, from JAX's init carried across by
-`models.weights.state_dict_from_jax`.
+`models.weights.state_dict_from_jax`, and JAX `make_sharded_forward` on
+the same `create_mesh(1, 2)` (on `shard_variables` where the port's
+model is sharded).
 
 Bars: the loss of a step within 1e-5 relative (JAX's own between its
 one-device and its sharded step); the first step's gradient within 1e-5
@@ -29,7 +31,9 @@ whole). The parameters after the step within Adam's bound 2 * lr (its
 first update is about lr * sign(grad), and a gradient of rounding noise
 takes either sign); the head bias within JAX's 1e-6 of JAX's
 single-device step; the row forward's four maps within JAX's atol 1e-5
-of JAX `make_forward` and of the port's one-process forward. A fault
+of JAX `make_forward` and of the port's one-process forward, and the
+1 x 2 `make_sharded_forward`'s within it of JAX's on that mesh and of
+the one-process forward. A fault
 planted in the spatial backward (`FAULTS`: the halo gradients dropped,
 the head output's gradient summed over the rows' ranks) must land
 outside the spatial step's gradient bar.
@@ -50,9 +54,11 @@ from structuredetector_tpu.models import init_model as jax_init_model
 from structuredetector_tpu.models.network import load_params
 from structuredetector_tpu.parallel.mesh import create_mesh as jax_create_mesh
 from structuredetector_tpu.parallel.mesh import param_shardings as jax_param_shardings
+from structuredetector_tpu.parallel.mesh import shard_variables as jax_shard_variables
 from structuredetector_tpu.train.state import create_train_state as jax_create_train_state
 from structuredetector_tpu.train.state import make_optimizer as jax_make_optimizer
 from structuredetector_tpu.train.steps import make_forward as jax_make_forward
+from structuredetector_tpu.train.steps import make_sharded_forward as jax_make_sharded_forward
 from structuredetector_tpu.train.steps import make_train_step as jax_make_train_step
 from structuredetector_tpu_torch.cli import evaluate as evaluate_cli
 from structuredetector_tpu_torch.models.network import init_model
@@ -70,6 +76,8 @@ from tests.torch_port_parallel_worker import (
     GLOBAL_BATCH,
     ROW_INPUTS,
     ROW_VARIANTS,
+    TP_FORWARD_INPUTS,
+    TP_FORWARDS,
     fingerprint,
     forward_images,
     jax_test_batch,
@@ -205,6 +213,13 @@ def runs(tmp_path_factory):
     for name, (shape, seed) in ROW_INPUTS.items():
         jax_runs[name] = {k: np.transpose(np.asarray(v), (0, 3, 1, 2)) for k, v in  # NHWC
                           forward(variables, jnp.asarray(forward_images(shape, seed))).items()}
+    sharded_variables = jax_shard_variables(variables, mesh)
+    for name, (inputs, shard, spatial) in TP_FORWARDS.items():
+        forward = jax_make_sharded_forward(model, mesh, spatial=spatial)
+        maps = forward(sharded_variables if shard else variables,
+                       jnp.asarray(forward_images(*TP_FORWARD_INPUTS[inputs])))
+        jax_runs[f"forward_{name}"] = {k: np.transpose(np.asarray(v), (0, 3, 1, 2))
+                                       for k, v in maps.items()}
 
     seeded = train_batch(small_config(), GLOBAL_BATCH, 7, False)
     one = {"jax_weights": mesh_step(cfg, None, images, kp, weights),
@@ -216,6 +231,11 @@ def runs(tmp_path_factory):
         model_one = init_model(cfg)
         model_one.load_state_dict(weights)
         one[name] = make_sharded_forward(model_one)(torch.from_numpy(forward_images(shape, seed)))
+    for name, (shape, seed) in TP_FORWARD_INPUTS.items():
+        model_one = init_model(cfg)
+        model_one.load_state_dict(weights)
+        one[f"forward_{name}"] = make_sharded_forward(model_one)(
+            torch.from_numpy(forward_images(shape, seed)))
     for name, (overrides, inputs) in ROW_VARIANTS.items():
         one[name] = make_sharded_forward(init_model(mesh_config(**overrides)))(
             torch.from_numpy(forward_images(*ROW_INPUTS[inputs])))
@@ -339,6 +359,36 @@ def test_model_axis_checkpoint_loads_on_other_meshes(runs):
     assert CheckpointManager(runs["tmp"] / "ckpt").restore_state(state)
     assert fingerprint(state.model.state_dict()) == runs["ranks"]["tp"][0]["tp"]["fingerprint"]
     assert state.step == 1
+
+
+@pytest.mark.parametrize("name", list(TP_FORWARDS))
+def test_sharded_forward_on_model_axis_matches_jax(runs, name):
+    """`make_sharded_forward` on `create_mesh(1, 2)` (a data axis of one):
+    a plain model at batch 1 and 2, a `shard_model` model through its
+    plan, and that model with `spatial=True`. Each rank runs the data
+    group's whole batch (the ranks of a model group run the same images)
+    and returns JAX `make_sharded_forward`'s four maps on its 2-device
+    mesh (on `shard_variables` where sharded) within atol 1e-5, and the
+    port's one-process forward's."""
+    inputs = TP_FORWARDS[name][0]
+    batch = TP_FORWARD_INPUTS[inputs][0][0]
+    for r in runs["ranks"]["tp"]:
+        got = r["forward"][name]
+        assert isinstance(got, dict), got
+        assert got["batch_seen"] == [batch]
+        for key, value in runs["jax"][f"forward_{name}"].items():
+            np.testing.assert_allclose(got["maps"][key].numpy(), value, atol=1e-5, err_msg=key)
+        for key, value in runs["one"][f"forward_{inputs}"].items():
+            assert float((got["maps"][key] - value).abs().max()) <= 1e-5, key
+
+
+def test_sharded_model_without_its_plan_raises(runs):
+    """A model whose convs hold Cout shards, run through `make_sharded_forward`
+    without `partition=`, raises a ValueError that names `partition=`
+    (not cuDNN's channel-count error)."""
+    for r in runs["ranks"]["tp"]:
+        kind, message = r["forward"]["missing_plan"]
+        assert kind == "ValueError" and "partition=" in message, message
 
 
 @pytest.mark.parametrize("name", list(ROW_INPUTS))

@@ -16,9 +16,10 @@ and the config errors under a group; ARGS: the "plain" run's weights
 file), "step" (the "augment" run), "cli" (ARGS: the working directory,
 then `cli.train`'s arguments), and the model axis's (`tests/
 test_torch_port_model_axis.py`): "model_axis" on 2 ranks (the 1 x 2
-tensor-parallel step, its checkpoint restored on two mesh shapes, the
-mesh and the config under the group; ARGS: `mesh_config`'s weights
-file, a checkpoint directory) and "rows" on 4 ranks (the row forward
+tensor-parallel step, its checkpoint restored on two mesh shapes,
+`make_sharded_forward` on the 1 x 2 mesh (`TP_FORWARDS`), the mesh and
+the config under the group; ARGS: `mesh_config`'s weights file, a
+checkpoint directory) and "rows" on 4 ranks (the row forward
 over 1 x 4, the spatial step over 2 x 2, with each `FAULTS` fault planted
 too, the tensor-parallel step over 2 x 2; ARGS: the weights file),
 "host_augment" (the "cli" case with the host augmentation's rng seeded
@@ -217,6 +218,49 @@ ROW_INPUTS = {"rows_32": ((4, 32, 32, 3), 1), "rows_64": ((1, 64, 64, 3), 2)}
 ROW_VARIANTS = {"s2d": (dict(s2d_stem=True), "rows_32"),
                 "head_conv": (dict(head_conv=16), "rows_64"),
                 "resnet50": (dict(backbone="resnet50"), "rows_64")}
+
+
+# make_sharded_forward's inputs on the 1 x 2 mesh: batch 1 and 2 of JAX's
+# forward images at `mesh_config`'s width
+TP_FORWARD_INPUTS = {"b1": ((1, 32, 32, 3), 3), "b2": ((2, 32, 32, 3), 4)}
+# its cases there: (input, the model sharded by shard_model, spatial)
+TP_FORWARDS = {"plain_b1": ("b1", False, False), "plain_b2": ("b2", False, False),
+               "sharded_b2": ("b2", True, False), "sharded_spatial_b2": ("b2", True, True)}
+
+
+def sharded_forwards(mesh, weights, device) -> dict:
+    """`make_sharded_forward` on `mesh` for each `TP_FORWARDS` case from
+    `weights` (`mesh_config`'s model): the four maps and the batch of each
+    call of the model on this rank, or the error raised; and
+    ("missing_plan") the error of a sharded model run without its plan."""
+    from structuredetector_tpu_torch.models.network import init_model
+    from structuredetector_tpu_torch.parallel.partition import shard_model
+    from structuredetector_tpu_torch.train.steps import make_sharded_forward
+
+    def model_of(shard: bool):
+        model = init_model(mesh_config())
+        model.load_state_dict(weights)
+        model = model.to(device)
+        return model, (shard_model(model, mesh) if shard else None)
+
+    out = {}
+    for name, (inputs, shard, spatial) in TP_FORWARDS.items():
+        model, plan = model_of(shard)
+        seen = []
+        model.register_forward_pre_hook(lambda m, args: seen.append(args[0].shape[0]))
+        images = torch.from_numpy(forward_images(*TP_FORWARD_INPUTS[inputs])).to(device)
+        try:
+            maps = make_sharded_forward(model, mesh, spatial=spatial, partition=plan)(images)
+            out[name] = {"maps": {k: v.cpu() for k, v in maps.items()}, "batch_seen": seen}
+        except Exception as e:  # recorded: the test names the case that failed
+            out[name] = repr(e)
+    model, _ = model_of(True)
+    try:
+        make_sharded_forward(model, mesh)(images)
+        out["missing_plan"] = None
+    except Exception as e:
+        out["missing_plan"] = (type(e).__name__, str(e))
+    return out
 
 
 def _dropped_halo_grad(ctx, g):
@@ -448,6 +492,7 @@ def main(argv) -> None:
         dist.barrier()
         result["restore"] = _restored(cfg, mesh, args[1], tp["whole"])
         result["tp"] = tp
+        result["forward"] = sharded_forwards(mesh, torch.load(args[0]), device)
         result["tp_head7"] = mesh_step(small_config(), mesh,
                                        *train_batch(small_config(), GLOBAL_BATCH, 7, False))
         result["tp_resnet50"] = mesh_step(small_config(backbone="resnet50"), mesh,
