@@ -131,6 +131,19 @@ of JAX or of the JAX package. Phases, one JSON line each:
    kernel B; the seeded full-width model written with
    `save_reference_pth` loads strictly into a fresh SDNet
    (`load_weights`) whose eval forward on the card is bit-identical;
+   every `structuredetector_tpu_torch.tools` module imports in a fresh
+   process without JAX, the JAX package or the repo-root `tools/`;
+10e. accuracy (main path of kernel A in validation, the gate's
+   checkpoint arm, oracle arm D and the conf sweep, and of kernel B in
+   the served load test): `tools.accuracy_run` at a reduced depth (320
+   train / 16 valid rendered images, the first one's SHA-256 printed;
+   `cli.train` under `tools.supervise` with the flagship recipe for 60
+   epochs at a constant learning rate (`--lr_step 1`); the gate's four
+   arms on `model_best_csi.msgpack`, printed as its table; oracle arm D;
+   a 5 s load test at max_batch 32; the conf sweep), its train and serve
+   subprocesses counting their own launches (`--counts_out`); the
+   checkpoint row's anchor F1 must be at least 0.5 and the float
+   artifact's kps F1 within 0.01 of it;
 11. variants (main path of kernels A and B for the model variants): at
    full width (512x512, fpn_depth 128, bf16, labels.json, seeded
    weights) resnet18, resnet50, resnet34 with `--s2d_stem` and with
@@ -2889,6 +2902,13 @@ def phase_library(card: str) -> dict:
     if list(sdt.__all__) != LIBRARY_NAMES:
         raise AssertionError(f"the top-level names are {sdt.__all__}")
     resolved = {name: getattr(sdt, name).__module__ for name in LIBRARY_NAMES}
+    proc = subprocess.run([sys.executable, "-c", _CLEAN_TOOLS_IMPORT], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    if proc.returncode:
+        raise AssertionError(f"import structuredetector_tpu_torch.tools.*: {proc.stderr[-2000:]}")
+    tools = json.loads(proc.stdout.strip().splitlines()[-1])
+    if tools["banned"] or "accuracy_run" not in tools["modules"]:
+        raise AssertionError(f"importing the tools: {tools}")
 
     cfg = sdt.Config(labels_path=ROOT / "labels.json").finalize()
     pixels = np.random.default_rng(23).integers(0, 256, (32, cfg.height, cfg.width, 3),
@@ -2912,7 +2932,7 @@ def phase_library(card: str) -> dict:
         a, b = model(feed, raw_output=True), fresh(feed, raw_output=True)
     identical = bool(torch.equal(a, b))
     emit({"phase": "library", "card": card, "clean_import": loaded == [],
-          "resolved": resolved, "device": str(predictor.device),
+          "tools_clean_import": tools, "resolved": resolved, "device": str(predictor.device),
           "predictor": {"model": f"SDNet resnet34 fpn_depth={cfg.fpn_depth} "
                                  f"{cfg.width}x{cfg.height} bf16, seeded init",
                         "batch": 32, "annotations": len(annotations),
@@ -2922,6 +2942,120 @@ def phase_library(card: str) -> dict:
     if not identical:
         raise AssertionError("the .pth round trip changed the forward: "
                              f"{float((a - b).abs().max())}")
+    return launches
+
+
+_CLEAN_TOOLS_IMPORT = (
+    "import importlib, json, pkgutil, sys\n"
+    "import structuredetector_tpu_torch.tools as tools_pkg\n"
+    "names = sorted(m.name for m in pkgutil.iter_modules(tools_pkg.__path__))\n"
+    "for name in names:\n"
+    "    importlib.import_module('structuredetector_tpu_torch.tools.' + name)\n"
+    "banned = ('jax', 'structuredetector_tpu', 'tools')\n"
+    "print(json.dumps({'modules': names, 'banned': sorted(m for m in sys.modules "
+    "if any(m == b or m.startswith(b + '.') for b in banned))}))\n"
+)
+
+
+def _counted_module(out: Path, module: str, argv) -> None:
+    """`module`'s `main(argv)` in this process (a subprocess of the accuracy
+    phase's chain); its kernel launch counts go to `out/<pid>.json` when
+    it returns, and when SIGTERM ends it (the load test stops its server
+    so)."""
+    import importlib
+    import signal
+
+    from structuredetector_tpu_torch.ops.kernels import launch_counts
+
+    out.mkdir(parents=True, exist_ok=True)
+
+    def write():
+        (out / f"{os.getpid()}.json").write_text(json.dumps(launch_counts()))
+
+    def on_term(signum, frame):
+        write()
+        os._exit(0)
+
+    signal.signal(signal.SIGTERM, on_term)
+    importlib.import_module(module).main(list(argv))
+    write()
+
+
+# The recipe's step decay (a tenth at each third of the epochs) falls
+# after 200 steps at this depth and stalls learning: 480 images for 60
+# epochs with it reached anchor F1 0.20, 96 images for 30 epochs wrote no
+# best-CSI model; a constant rate (--lr_step 1) reached 0.96 in 600 steps
+# (NVIDIA H100 80GB HBM3, 700.00 W).
+ACCURACY = {"train": 320, "valid": 16, "epochs": 60, "load_test_s": 5.0, "max_batch": 32,
+            "clients": 32, "train_args": ["--lr_step", "1"]}
+
+
+def phase_accuracy(card: str, tmp: Path) -> dict:
+    """The accuracy chain (`tools.accuracy_run`) at a reduced depth, through
+    the entry points a user calls: 320 train / 16 valid images rendered
+    from the data seed (the first image's SHA-256 printed), `cli.train`
+    under `tools.supervise` with the flagship recipe (resnet34, fpn_depth
+    128, 512x512, bf16, focal, batch 32) for 60 epochs (600 steps) at a
+    constant learning rate, the gate's four arms on its
+    `model_best_csi.msgpack`, oracle arm D, a 5 s load test of
+    `cli.serve` at max_batch 32 and the conf sweep. The train and
+    serve subprocesses run under `_counted_module`, so the path's launch
+    counts include theirs. Kernels A (validation, the checkpoint arm,
+    oracle D, the sweep) and B (the server) must be launched; the
+    checkpoint row's anchor F1 must be at least 0.5 and the float
+    artifact's kps F1 within 0.01 of it. Returns the path's launch
+    counts."""
+    from structuredetector_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from structuredetector_tpu_torch.tools import accuracy_run, load_test, supervise
+
+    t_phase = time.perf_counter()
+    counts_dir = tmp / "counts"
+    wrap = [sys.executable, str(ROOT / "chip_smoke.py"), "--counts_out", str(counts_dir),
+            "--module"]
+    argv = ["--data", str(tmp / "data"), "--train", str(ACCURACY["train"]),
+            "--valid", str(ACCURACY["valid"]), "--epochs", str(ACCURACY["epochs"]),
+            "--out", str(tmp / "out"), "--labels", str(ROOT / "labels.json"),
+            "--oracle_arms", "D", "--sweep", str(ACCURACY["max_batch"]),
+            "--clients", str(ACCURACY["clients"]), "--duration", str(ACCURACY["load_test_s"]),
+            "--", *ACCURACY["train_args"]]
+    reset_launch_counts()
+    with _patched(supervise, "TRAIN_COMMAND",
+                  wrap + ["structuredetector_tpu_torch.cli.train", "--"]), \
+            _patched(load_test, "SERVE_COMMAND",
+                     wrap + ["structuredetector_tpu_torch.cli.serve", "--"]), _cwd(tmp):
+        record = accuracy_run.run(accuracy_run.parse_args(argv))
+    launches = launch_counts()
+    by_process = {}
+    for f in sorted(counts_dir.glob("*.json")):
+        by_process[f.stem] = json.loads(f.read_text())
+        for k, v in by_process[f.stem].items():
+            launches[k] = launches.get(k, 0) + v
+    gate = json.loads(Path(record["results"]["gate"]).read_text())
+    rows = gate["summaries"]
+    base, sdz = rows["checkpoint_bf16"], rows["sdz_float"]
+    load = json.loads(Path(record["results"]["load_test"]).read_text())
+    print(gate["table"], flush=True)
+    result = {
+        "phase": "accuracy", "card": card, "config": dict(ACCURACY),
+        "model": "SDNet resnet34 fpn_depth=128 512x512 bf16, focal, batch 32, labels.json",
+        "image_digest": record["image_digest"], "stages_s": record["stages_s"],
+        "gate": gate["gate"], "table": gate["table"],
+        "f1": {mode: {k: s.get(k) for k in ("anchor/f1_total", "kps/f1_total",
+                                            "csi/f1_total", "classif/f1_total",
+                                            "grouping/accuracy")}
+               for mode, s in rows.items()},
+        "sdz_float_kps_delta": sdz["kps/f1_total"] - base["kps/f1_total"],
+        "oracle": record["oracle"], "load_test": load["runs"],
+        "launches": launches, "launches_by_process": by_process,
+        "seconds": time.perf_counter() - t_phase}
+    emit(result)
+    if not (launches.get("sigmoid_nms") and launches.get("sigmoid_nms_topk")):
+        raise AssertionError(f"the accuracy path did not launch kernels A and B: {launches}")
+    if base["anchor/f1_total"] < 0.5:
+        raise AssertionError(f"checkpoint anchor F1 {base['anchor/f1_total']:.4f} < 0.5")
+    if abs(result["sdz_float_kps_delta"]) > 0.01:
+        raise AssertionError(f"sdz_float kps F1 departs from the checkpoint's by "
+                             f"{result['sdz_float_kps_delta']:+.4f} (bar 0.01)")
     return launches
 
 
@@ -3253,6 +3387,10 @@ def main(argv=None) -> int:
     p.add_argument("--dp_rank_out", type=Path, default=None, help=argparse.SUPPRESS)
     p.add_argument("--dp_cli_out", type=Path, default=None, help=argparse.SUPPRESS)
     p.add_argument("--ma_case", default=None, help=argparse.SUPPRESS)
+    # the accuracy phase's train and serve subprocesses: a module's main
+    # (its arguments after --) with its launch counts written into a directory
+    p.add_argument("--counts_out", type=Path, default=None, help=argparse.SUPPRESS)
+    p.add_argument("--module", default=None, help=argparse.SUPPRESS)
     p.add_argument("cli_argv", nargs="*", help=argparse.SUPPRESS)
     args = p.parse_args(argv)
 
@@ -3273,6 +3411,9 @@ def main(argv=None) -> int:
         return 0
     if args.dp_cli_out is not None:
         _dp_cli_rank(args.dp_cli_out, args.cli_argv)
+        return 0
+    if args.counts_out is not None:
+        _counted_module(args.counts_out, args.module, args.cli_argv)
         return 0
     from structuredetector_tpu_torch.tools.timing import card as query_card
 
@@ -3302,6 +3443,8 @@ def main(argv=None) -> int:
     by_path["data_parallel"] = phase_data_parallel(card)
     by_path["model_axis"] = phase_model_axis(card)
     by_path["library"] = phase_library(card)
+    with tempfile.TemporaryDirectory(prefix="sdnet-accuracy-") as work:
+        by_path["accuracy"] = phase_accuracy(card, Path(work))
     with tempfile.TemporaryDirectory(prefix="sdnet-variants-") as work:
         by_path["variants"], variant_ms = phase_variants(card, Path(work))
     forward_ms["resnet50 bf16"] = variant_ms["resnet50"]

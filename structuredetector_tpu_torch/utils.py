@@ -31,6 +31,15 @@ def set_build_dir(path) -> None:
     _build_dir = Path(path).expanduser().resolve()
 
 
+def package_env() -> dict:
+    """This process's environment with the directory that holds the
+    package first on PYTHONPATH, so a `python -m structuredetector_tpu_torch
+    ...` subprocess imports this copy from any working directory."""
+    root = str(Path(__file__).resolve().parents[1])
+    path = os.environ.get("PYTHONPATH")
+    return {**os.environ, "PYTHONPATH": root + (os.pathsep + path if path else "")}
+
+
 def resolve_device(device="cuda") -> torch.device:
     """`device` as a `torch.device`. A CUDA device on a host without CUDA
     raises: the port never moves to the CPU unless the caller asks. Under
