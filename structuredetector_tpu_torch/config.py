@@ -73,7 +73,7 @@ class Config:
     use_amp: bool = True
 
     # training runtime (the JAX package's defaults, config.py:72-169)
-    profile: bool = False  # torch.profiler trace of steps 5-10
+    profile: bool = False  # torch.profiler trace of steps 5-10, sd.* spans included
     # exit with code 87 when no step completes for this many seconds
     # (0 = off); resumable with --resume
     stall_timeout_s: float = 0.0
@@ -351,7 +351,8 @@ def build_parser(parser: Optional[argparse.ArgumentParser] = None) -> argparse.A
                         "--model_parallel M).")
     p.add_argument("--profile", action="store_true",
                    help="Write a torch.profiler trace of training steps 5-10 to "
-                        "<run dir>/profile.")
+                        "<run dir>/profile; it carries the port's sd.* spans "
+                        "(loader, step phases, garbage collections) beside the kernels.")
     p.add_argument("--stall_timeout_s", type=float, default=d.stall_timeout_s,
                    help="Exit with code 87 if no step completes for this many "
                         "seconds (0 = off). Resumable via --resume.")

@@ -28,6 +28,7 @@ import torch
 from ..annotations import ImageAnnotation, Keypoint, Object
 from ..ops.decode import decode_feature_maps
 from ..ops.kernels import sigmoid_nms
+from ..tracing import span
 
 
 class Decoder:
@@ -107,13 +108,15 @@ class Decoder:
         """One device->host copy of the four decode tensors, then
         `materialize`. Returns (annotations, anchors, parts): the numpy
         arrays come along for the metadata path's raw_parts."""
-        anchors, parts, part_parent, part_valid = (
-            dec[k].cpu().numpy()
-            for k in ("anchors", "parts", "part_parent", "part_valid")
-        )
-        annotations = self.materialize(
-            anchors, parts, part_parent, part_valid, out_hw, conf_thresh
-        )
+        with span("sd.predict.fetch"):
+            anchors, parts, part_parent, part_valid = (
+                dec[k].cpu().numpy()
+                for k in ("anchors", "parts", "part_parent", "part_valid")
+            )
+        with span("sd.predict.materialize"):
+            annotations = self.materialize(
+                anchors, parts, part_parent, part_valid, out_hw, conf_thresh
+            )
         return annotations, anchors, parts
 
     def materialize(self, anchors, parts, part_parent, part_valid,

@@ -33,6 +33,7 @@ import torch
 
 from ..annotations import ImageAnnotation, clip_annotation
 from ..parallel.multihost import process_slice
+from ..tracing import span
 from . import native
 
 
@@ -187,13 +188,18 @@ class Loader:
         return batches
 
     def __iter__(self):
-        batches = self._index_batches()
+        # `sd.loader.wait`: the consumer waits for (or, without workers,
+        # makes) the next batch
+        with span("sd.loader.wait"):
+            batches = self._index_batches()
         if self.batch_fetch is not None:
             yield from self._iter_batch_fetch(batches)
             return
         if self.num_workers <= 0:
             for idxs in batches:
-                yield self.collate_fn([self.dataset[i] for i in idxs])
+                with span("sd.loader.wait"):
+                    batch = self.collate_fn([self.dataset[i] for i in idxs])
+                yield batch
             return
         with ThreadPoolExecutor(max_workers=self.num_workers) as pool:
             inflight: collections.deque = collections.deque()
@@ -207,10 +213,12 @@ class Loader:
             for _ in range(self.prefetch_batches):
                 stage_next()
             while inflight:
-                futures = inflight.popleft()
-                samples = [f.result() for f in futures]
-                stage_next()
-                yield self.collate_fn(samples)
+                with span("sd.loader.wait"):
+                    futures = inflight.popleft()
+                    samples = [f.result() for f in futures]
+                    stage_next()
+                    batch = self.collate_fn(samples)
+                yield batch
 
     def _iter_batch_fetch(self, batches):
         """Whole batches made ahead on a coordinator thread; an error
@@ -241,7 +249,8 @@ class Loader:
         worker.start()
         try:
             while True:
-                item = staged.get()
+                with span("sd.loader.wait"):
+                    item = staged.get()
                 if item is done:
                     break
                 if isinstance(item, Exception):
@@ -306,11 +315,12 @@ def device_prefetch(iterator, device, size: int = 2):
     device = torch.device(device)
 
     def to_device(batch):
-        out = dict(batch)
-        out["image"] = _to_device(batch["image"], device)
-        if "keypoints" in batch:
-            out["keypoints"] = keypoints_to_device(batch["keypoints"], device)
-        return out
+        with span("sd.loader.h2d"):
+            out = dict(batch)
+            out["image"] = _to_device(batch["image"], device)
+            if "keypoints" in batch:
+                out["keypoints"] = keypoints_to_device(batch["keypoints"], device)
+            return out
 
     staged: collections.deque = collections.deque()
     for batch in iterator:

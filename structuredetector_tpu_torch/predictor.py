@@ -31,6 +31,7 @@ from .models.network import init_model
 from .models.weights import load_weights
 from .ops.decode import decode_feature_maps_planes, split_head_output
 from .ops.device_augment import normalize_images
+from .tracing import span
 from .utils import resolve_device
 
 
@@ -113,6 +114,33 @@ def _as_rgb(image):
     return image
 
 
+def _prepare(images: Sequence, transform) -> Tuple[list, List[np.ndarray]]:
+    """Per-image host prep of a batch -> (sources, network feeds): a
+    `PreparedImage` goes as it is, anything else is opened as RGB and
+    `transform`ed."""
+    with span("sd.predict.prep"):
+        sources, arrays = [], []
+        for im in images:
+            if isinstance(im, PreparedImage):
+                sources.append(im)
+                arrays.append(im.array)
+                continue
+            im = _as_rgb(im)
+            sources.append(im)
+            arrays.append(transform(im))
+        return sources, arrays
+
+
+def _stack_to_device(arrays, device: torch.device) -> torch.Tensor:
+    with span("sd.predict.h2d"):
+        batch = torch.from_numpy(arrays if isinstance(arrays, np.ndarray) else np.stack(arrays))
+        if device.type == "cuda":
+            # pinned + non_blocking: the copy queues behind earlier work
+            # on the stream instead of blocking this thread on it
+            return batch.pin_memory().to(device, non_blocking=True)
+        return batch
+
+
 class Predictor:
     def __init__(
         self,
@@ -188,16 +216,14 @@ class Predictor:
     def to_device(self, arrays) -> torch.Tensor:
         """Stack (H, W, 3) host feeds into one batch on the device; a
         (B, H, W, 3) array (a collated batch) goes as it is."""
-        batch = torch.from_numpy(arrays if isinstance(arrays, np.ndarray) else np.stack(arrays))
-        if self.device.type == "cuda":
-            # pinned + non_blocking: the copy queues behind earlier work
-            # on the stream instead of blocking this thread on it
-            return batch.pin_memory().to(self.device, non_blocking=True)
-        return batch
+        return _stack_to_device(arrays, self.device)
 
     def _device_decode(self, arrays: List[np.ndarray]):
-        head = self.forward(self.to_device(arrays))
-        return self.decode(head), tuple(head.shape[2:])
+        batch = self.to_device(arrays)
+        with span("sd.predict.forward"):
+            head = self.forward(batch)
+        with span("sd.predict.decode"):
+            return self.decode(head), tuple(head.shape[2:])
 
     def predict_image(self, image) -> ImageAnnotation:
         """One image -> annotation in original pixel coordinates."""
@@ -213,16 +239,9 @@ class Predictor:
         depth-2 pipeline prepares batch N+1 while batch N runs."""
         if not images:
             return None
-        sources, arrays = [], []
-        for im in images:
-            if isinstance(im, PreparedImage):
-                sources.append(im)
-                arrays.append(im.array)
-                continue
-            im = _as_rgb(im)
-            sources.append(im)
-            arrays.append(self.transform(im))
-        dec, out_hw = self._device_decode(arrays)
+        with span("sd.predict.submit"):
+            sources, arrays = _prepare(images, self.transform)
+            dec, out_hw = self._device_decode(arrays)
         return dec, out_hw, sources
 
     def predict_batch_collect(self, handle) -> List[ImageAnnotation]:
@@ -231,10 +250,11 @@ class Predictor:
         if handle is None:
             return []
         dec, out_hw, sources = handle
-        annotations, _, _ = self.decoder.fetch_and_materialize(
-            dec, out_hw, self.config.conf_threshold
-        )
-        return _rescale(annotations, sources, self.config)
+        with span("sd.predict.collect"):
+            annotations, _, _ = self.decoder.fetch_and_materialize(
+                dec, out_hw, self.config.conf_threshold
+            )
+            return _rescale(annotations, sources, self.config)
 
     def predict_tiled(
         self,
@@ -355,10 +375,7 @@ class ExportPredictor:
 
     def to_device(self, arrays) -> torch.Tensor:
         """Stack (H, W, 3) host feeds into one batch on the device."""
-        batch = torch.from_numpy(arrays if isinstance(arrays, np.ndarray) else np.stack(arrays))
-        if self.device.type == "cuda":
-            return batch.pin_memory().to(self.device, non_blocking=True)
-        return batch
+        return _stack_to_device(arrays, self.device)
 
     def forward(self, batch: torch.Tensor) -> torch.Tensor:
         """(B, H, W, 3) feed on the device -> the program's (B, M+N+4,
@@ -382,23 +399,19 @@ class ExportPredictor:
         """Device half: every chunk queued on the device, nothing fetched."""
         if not images:
             return None
-        sources, arrays = [], []
-        for im in images:
-            if isinstance(im, PreparedImage):
-                sources.append(im)
-                arrays.append(im.array)
-                continue
-            im = _as_rgb(im)
-            sources.append(im)
-            arrays.append(self._transform(im))
-        step = self.batch_size or len(arrays)
-        chunks = []
-        for start in range(0, len(arrays), step):
-            chunk = arrays[start : start + step]
-            n = len(chunk)
-            chunk = chunk + [chunk[-1]] * (step - n)  # pad a static batch
-            head = self.forward(self.to_device(chunk))
-            chunks.append((self.decode(head), tuple(head.shape[2:]), n))
+        with span("sd.predict.submit"):
+            sources, arrays = _prepare(images, self._transform)
+            step = self.batch_size or len(arrays)
+            chunks = []
+            for start in range(0, len(arrays), step):
+                chunk = arrays[start : start + step]
+                n = len(chunk)
+                chunk = chunk + [chunk[-1]] * (step - n)  # pad a static batch
+                batch = self.to_device(chunk)
+                with span("sd.predict.forward"):
+                    head = self.forward(batch)
+                with span("sd.predict.decode"):
+                    chunks.append((self.decode(head), tuple(head.shape[2:]), n))
         return chunks, sources
 
     def predict_batch_collect(self, handle) -> List[ImageAnnotation]:
@@ -408,8 +421,9 @@ class ExportPredictor:
             return []
         chunks, sources = handle
         annotations: List[ImageAnnotation] = []
-        for dec, out_hw, n in chunks:
-            anns, _, _ = self.decoder.fetch_and_materialize(dec, out_hw,
-                                                            self.config.conf_threshold)
-            annotations.extend(anns[:n])
-        return _rescale(annotations, sources, self.config)
+        with span("sd.predict.collect"):
+            for dec, out_hw, n in chunks:
+                anns, _, _ = self.decoder.fetch_and_materialize(dec, out_hw,
+                                                                self.config.conf_threshold)
+                annotations.extend(anns[:n])
+            return _rescale(annotations, sources, self.config)

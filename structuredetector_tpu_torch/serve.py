@@ -29,6 +29,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from . import tracing
 from .data import native
 from .predictor import PreparedImage
 
@@ -398,7 +399,8 @@ def make_server(predictor, host: str = "127.0.0.1", port: int = 8000,
     Routes:
       POST /detect  — raw JPEG/PNG bytes in the body -> annotation JSON
                       (reference schema) in original image coordinates
-      GET  /healthz — liveness + batching counters + queue depth
+      GET  /healthz — liveness + batching counters + queue depth + the
+                      garbage collector's pauses (`tracing.counters()`)
     """
     split = None
     if pipeline:
@@ -441,6 +443,7 @@ def make_server(predictor, host: str = "127.0.0.1", port: int = 8000,
                     "images_run": batcher.images_run,
                     "queue_depth": batcher.queue_depth,
                     "latency": batcher.latency_stats(),
+                    "gc": tracing.counters(),
                     "model": model_info,
                 })
             else:

@@ -53,6 +53,7 @@ from ..ops.encode import EncodedTargets, encode_targets
 from ..ops.losses import sdnet_loss
 from ..parallel.mesh import all_reduce_sum, rank, world_size
 from ..parallel.partition import RowPlan, all_gather, unshard_model
+from ..tracing import span
 from .state import TrainState
 
 
@@ -100,14 +101,16 @@ def train_step(state: TrainState, images: torch.Tensor, kp: Dict[str, torch.Tens
         index, ranks, group = rank(), world_size(), None
     out_h, out_w = _grid(images, config)
     if augment:
-        if images.dtype == torch.uint8:
-            images = (images.float() / 255.0).to(dtype)
-        else:
-            images = images.to(dtype)
-        images, kp = device_augment(images, kp, step_generator(config.seed, state.step),
-                                    out_w=out_w, out_h=out_h, flip_prob=config.flip_prob,
-                                    rank=index, world=ranks)
-    targets = encode_batch(kp, config, out_h, out_w)
+        with span("sd.train.augment"):
+            if images.dtype == torch.uint8:
+                images = (images.float() / 255.0).to(dtype)
+            else:
+                images = images.to(dtype)
+            images, kp = device_augment(images, kp, step_generator(config.seed, state.step),
+                                        out_w=out_w, out_h=out_h, flip_prob=config.flip_prob,
+                                        rank=index, world=ranks)
+    with span("sd.train.encode"):
+        targets = encode_batch(kp, config, out_h, out_w)
     state.model.train()
     # DDP averages over the data group, or under `spatial` over the whole
     # mesh, where each rank's gradient is its rows' part of its data rank's
@@ -116,16 +119,19 @@ def train_step(state: TrainState, images: torch.Tensor, kp: Dict[str, torch.Tens
     x = images.permute(0, 3, 1, 2).contiguous()
     global_sum = functools.partial(all_reduce_sum, group=group) if ranks > 1 else None
     with no_tf32(dtype, images.device):
-        head = net(x, raw_output=True, partition=plan)
-        loss, stats = _loss(split_head_output(head, config.n_labels, config.n_parts),
-                            targets, config, global_sum=global_sum)
-        state.optimizer.zero_grad(set_to_none=True)
-        # scale * the rank's share makes DDP's average the gradient of the
-        # global loss
-        (loss * scale if scale > 1 else loss).backward()
-    if state.partition is not None:
-        state.partition.average_replicated_grads(state.model)
-    state.apply_gradients()
+        with span("sd.train.forward"):
+            head = net(x, raw_output=True, partition=plan)
+            loss, stats = _loss(split_head_output(head, config.n_labels, config.n_parts),
+                                targets, config, global_sum=global_sum)
+        with span("sd.train.backward"):
+            state.optimizer.zero_grad(set_to_none=True)
+            # scale * the rank's share makes DDP's average the gradient of
+            # the global loss
+            (loss * scale if scale > 1 else loss).backward()
+    with span("sd.train.optimizer"):
+        if state.partition is not None:
+            state.partition.average_replicated_grads(state.model)
+        state.apply_gradients()
     return {k: v.detach() for k, v in stats.items()}
 
 

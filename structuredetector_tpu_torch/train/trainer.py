@@ -65,6 +65,7 @@ from ..models.weights import (
 )
 from ..parallel.mesh import create_mesh
 from ..parallel.partition import shard_model, share_over_model
+from ..tracing import span
 from ..utils import progress, resolve_device
 from .checkpoints import BestModelSaver, CheckpointManager
 from .state import TrainState, create_train_state, make_optimizer
@@ -534,8 +535,9 @@ class Trainer:
                 # the host's draws come from one rng that the loader's
                 # threads share in no set order
                 share_over_model([batch["image"], *batch["keypoints"].values()], self.mesh)
-            stats = train_step(self.state, batch["image"], batch["keypoints"], cfg,
-                               augment=augment, mesh=self.mesh)
+            with span("sd.train.step"):
+                stats = train_step(self.state, batch["image"], batch["keypoints"], cfg,
+                                   augment=augment, mesh=self.mesh)
             if self.ema_params is not None:
                 ema_update(self.ema_params, self.model, cfg.ema, self.state.step)
             if prof is not None and i == 10:

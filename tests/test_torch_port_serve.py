@@ -253,6 +253,9 @@ def test_http_answers_equal_predict_batch(server, predictor):
         health = json.loads(resp.read())
     assert health["status"] == "ok" and health["images_run"] >= len(bodies)
     assert health["model"]["device"] == "cpu"
+    assert set(health["gc"]) == {"gen0", "gen1", "gen2"}
+    for gen in health["gc"].values():
+        assert gen["collections"] >= 0 and gen["seconds"] >= 0
 
 
 def test_http_rejects_bad_requests(server):
