@@ -31,6 +31,7 @@ mean accumulated in float32.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, NamedTuple, Tuple
 
 import numpy as np
@@ -55,6 +56,18 @@ class AugmentParams(NamedTuple):
     hue: torch.Tensor
     hflip: torch.Tensor  # bool
     vflip: torch.Tensor  # bool
+
+
+def pack_augment_params(params: AugmentParams, out: torch.Tensor) -> torch.Tensor:
+    """The draws as the rows of one float32 (6, B) tensor `out`, the flags
+    as 0 or 1: the train step's CUDA graph takes them in one copy."""
+    return torch.stack([t.float() for t in params], out=out)
+
+
+def unpack_augment_params(draws: torch.Tensor) -> AugmentParams:
+    """`pack_augment_params`'s rows back as draws: views of the factors,
+    the flags compared with 0."""
+    return AugmentParams(draws[0], draws[1], draws[2], draws[3], draws[4] != 0, draws[5] != 0)
 
 
 def step_generator(seed: int, step: int) -> torch.Generator:
@@ -178,10 +191,17 @@ def apply_flips(images: torch.Tensor, kp: Dict[str, torch.Tensor], params: Augme
     return images, kp
 
 
+@functools.lru_cache(maxsize=None)
+def _imagenet_stats(dtype: torch.dtype, device: torch.device):
+    """The ImageNet mean and std in `dtype` on `device`, made once: a copy
+    from the host inside a CUDA graph's capture would wait for the card."""
+    return (torch.as_tensor(IMAGENET_MEAN, dtype=dtype, device=device),
+            torch.as_tensor(IMAGENET_STD, dtype=dtype, device=device))
+
+
 def normalize_images(images: torch.Tensor) -> torch.Tensor:
     """(B, H, W, 3) [0, 1] RGB -> ImageNet-normalized, same layout."""
-    mean = torch.as_tensor(IMAGENET_MEAN, dtype=images.dtype, device=images.device)
-    std = torch.as_tensor(IMAGENET_STD, dtype=images.dtype, device=images.device)
+    mean, std = _imagenet_stats(images.dtype, images.device)
     return (images - mean) / std
 
 

@@ -29,6 +29,12 @@ Spans of one batch or step are tied together by nesting and order:
   `gc.callbacks` hook this module installs once on import. The hook
   also keeps counters whether or not anyone profiles; `counters()`
   returns them.
+
+`train_graph_counters()` counts how the train step ran
+(`train/graphs.py`): CUDA graphs captured and replayed, eager steps by
+the reason a graph could not serve them, and the device memory reserved
+while capturing (the graphs' shared pool). They are kept apart from the
+collector's counters, which `/healthz` reports as `"gc"`.
 """
 
 from __future__ import annotations
@@ -40,7 +46,7 @@ import time
 from torch.autograd import profiler as _profiler
 from torch.profiler import record_function
 
-__all__ = ["span", "counters"]
+__all__ = ["span", "counters", "train_graph_counters"]
 
 _NULL = contextlib.nullcontext()
 
@@ -99,3 +105,35 @@ def counters() -> dict:
     """The garbage collector's work since this module was imported:
     `{"gen0": {"collections", "seconds", "collected"}, "gen1": ..., "gen2": ...}`."""
     return _GC_HOOK.snapshot()
+
+
+class TrainGraphCounter:
+    """The train step's CUDA graphs, counted by `train.graphs.StepGraphs`
+    and `train.steps.train_step` in every process, profiled or not."""
+
+    def __init__(self):
+        self.captures = 0
+        self.replays = 0
+        self.eager: dict = {}
+        self.pool_bytes = 0
+
+    def captured(self, reserved_bytes: int) -> None:
+        self.captures += 1
+        self.pool_bytes += reserved_bytes
+
+    def ran_eager(self, reason: str) -> None:
+        self.eager[reason] = self.eager.get(reason, 0) + 1
+
+    def snapshot(self) -> dict:
+        return {"captures": self.captures, "replays": self.replays,
+                "eager": dict(self.eager), "pool_bytes": self.pool_bytes}
+
+
+TRAIN_GRAPH = TrainGraphCounter()
+
+
+def train_graph_counters() -> dict:
+    """The train step since this module was imported: `{"captures",
+    "replays", "eager": {reason: steps}, "pool_bytes"}` (`pool_bytes`: the
+    device memory reserved during the captures)."""
+    return TRAIN_GRAPH.snapshot()

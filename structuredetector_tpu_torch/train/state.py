@@ -20,6 +20,11 @@ as `partition`) the parameters and Adam's moments are the rank's Cout
 slices; `state_dict` gathers them whole and
 `load_state_dict` takes whole tensors and keeps the rank's slices, so a
 checkpoint is the same file whatever the mesh that wrote or reads it.
+
+On one card the state also holds the train step's CUDA graphs
+(`train.graphs.StepGraphs`, `graphs`). They read the parameters, their
+gradients and Adam's state in place; a loaded state is copied into the
+tensors they read, and the checkpoint's layout is the eager step's.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ import torch.distributed as dist
 from torch.nn.parallel import DistributedDataParallel
 
 from ..parallel.mesh import world_size
+from .graphs import StepGraphs
 
 
 def make_lr_schedule(config, steps_per_epoch: int) -> Callable[[int], float]:
@@ -81,6 +87,7 @@ class TrainState:
         self.lr_schedule = lr_schedule
         self.step = step
         self._ddp: Optional[DistributedDataParallel] = None
+        self.graphs = StepGraphs()
 
     def step_module(self, group=None) -> torch.nn.Module:
         """The module the train step calls: the model, or where `group` (None:
@@ -123,6 +130,7 @@ class TrainState:
         self.model.load_state_dict(model, strict=True)
         self.optimizer.load_state_dict(optimizer)
         self.step = int(sd["step"])
+        self.graphs.rebind()
 
     def _param_names(self):
         """The parameters' names in the optimizer's order."""

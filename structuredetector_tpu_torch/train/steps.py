@@ -37,6 +37,13 @@ and DDP averages every gradient over the whole mesh.
 `make_sharded_forward` is the inference forward over a mesh (JAX
 `steps.py:222-245`): the batch over the data axis, a sharded model
 through its plan, the rows over the model axis under `spatial=True`.
+
+On one card the step replays a CUDA graph of its whole body, one per
+multi-scale bucket (`train.graphs`): the same kernels in the same order,
+launched at once. It runs eagerly, as above, wherever
+`graphs.eager_reason` names a reason (the CPU, a process group, the
+model axis, anomaly mode, hooks a capture would not honour) and at a
+bucket's first step on a state, which warms it for the capture.
 """
 
 from __future__ import annotations
@@ -48,12 +55,18 @@ import torch
 
 from ..models.network import no_tf32
 from ..ops.decode import split_head_output
-from ..ops.device_augment import device_augment, step_generator
+from ..ops.device_augment import (
+    apply_augment,
+    device_augment,
+    step_generator,
+    unpack_augment_params,
+)
 from ..ops.encode import EncodedTargets, encode_targets
 from ..ops.losses import sdnet_loss
 from ..parallel.mesh import all_reduce_sum, rank, world_size
 from ..parallel.partition import RowPlan, all_gather, unshard_model
-from ..tracing import span
+from ..tracing import TRAIN_GRAPH, span
+from .graphs import eager_reason
 from .state import TrainState
 
 
@@ -77,6 +90,13 @@ def _grid(images: torch.Tensor, config):
     return int(h / config.down_ratio), int(w / config.down_ratio)
 
 
+def _to_compute(images: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The fed images in the compute dtype: uint8 -> /255 in float32 first."""
+    if images.dtype == torch.uint8:
+        return (images.float() / 255.0).to(dtype)
+    return images.to(dtype)
+
+
 def train_step(state: TrainState, images: torch.Tensor, kp: Dict[str, torch.Tensor],
                config, *, augment: bool = False, mesh=None,
                spatial: bool = False) -> Dict[str, torch.Tensor]:
@@ -88,7 +108,76 @@ def train_step(state: TrainState, images: torch.Tensor, kp: Dict[str, torch.Tens
     every rank on the data axis). A model sharded over the model axis
     (`state.partition`) steps on the mesh it was sharded over;
     `spatial=True` splits the rows of a replicated model's batch over the
-    mesh's model axis."""
+    mesh's model axis.
+
+    Where `graphs.eager_reason` names none, the step replays the bucket's
+    CUDA graph (`state.graphs`) once the bucket has taken one eager step
+    on this state; every eager step is counted with its reason
+    (`tracing.train_graph_counters()`)."""
+    graphs, key = state.graphs, None
+    reason = eager_reason(state, images, config, mesh, spatial)
+    if reason is None:
+        key = graphs.key(images, kp, augment, config)
+        if graphs.warmed(key):
+            return graphs.step(key, state, images, kp, config, augment, _graph_body)
+        reason = "first_use"
+    TRAIN_GRAPH.ran_eager(reason)
+    stats = _eager_train_step(state, images, kp, config, augment=augment, mesh=mesh,
+                              spatial=spatial)
+    graphs.rebind()  # the eager step left gradients of its own
+    if key is not None:
+        graphs.warm(key, images, kp, [p.grad is not None for p in state.model.parameters()])
+    return stats
+
+
+def capture_train_step(state: TrainState, images: torch.Tensor, kp: Dict[str, torch.Tensor],
+                       config, warmed_on: torch.nn.Module, *, augment: bool = False,
+                       mesh=None) -> bool:
+    """Capture the graph of this input's bucket on `state` ahead of its
+    first step, where the step would replay one. `warmed_on` is a copy of
+    `state.model` that has just taken an eager step on a batch of this
+    bucket: it warmed the shapes, and its gradients show which parameters
+    the step updates. Nothing runs on `state`. Returns whether a graph was
+    captured."""
+    if eager_reason(state, images, config, mesh) is not None:
+        return False
+    graphs = state.graphs
+    key = graphs.key(images, kp, augment, config)
+    graphs.warm(key, images, kp, [p.grad is not None for p in warmed_on.parameters()])
+    graphs.capture(key, state, config, augment, _graph_body)
+    return True
+
+
+def _graph_body(state: TrainState, images: torch.Tensor, kp: Dict[str, torch.Tensor], config,
+                draws: Optional[torch.Tensor]):
+    """The step that a CUDA graph captures, on its static inputs: the eager
+    step's kernels on one card, with the augmentation's draws from
+    `draws` (`pack_augment_params`' rows; None: no augmentation),
+    gradients accumulated into the zeroed buffers, and Adam at the rate
+    its param groups hold. Returns (the model's input, its head, the
+    stats)."""
+    dtype = config.compute_dtype
+    out_h, out_w = _grid(images, config)
+    if draws is not None:
+        images, kp = apply_augment(_to_compute(images, dtype), kp, unpack_augment_params(draws),
+                                   out_w=out_w, out_h=out_h)
+    targets = encode_batch(kp, config, out_h, out_w)
+    model = state.model
+    model.train()
+    x = images.permute(0, 3, 1, 2).contiguous()
+    with no_tf32(dtype, images.device):
+        head = model(x, raw_output=True)
+        loss, stats = _loss(split_head_output(head, config.n_labels, config.n_parts),
+                            targets, config)
+        state.optimizer.zero_grad(set_to_none=False)
+        loss.backward()
+    state.optimizer.step()
+    return x, head.detach(), {k: v.detach() for k, v in stats.items()}
+
+
+def _eager_train_step(state: TrainState, images: torch.Tensor, kp: Dict[str, torch.Tensor],
+                      config, *, augment: bool, mesh, spatial: bool) -> Dict[str, torch.Tensor]:
+    """`train_step` launched op by op, under every layout it takes."""
     dtype = config.compute_dtype
     if spatial and (mesh is None or state.partition is not None):
         raise ValueError("train_step(spatial=True) takes a mesh and a replicated model")
@@ -102,10 +191,7 @@ def train_step(state: TrainState, images: torch.Tensor, kp: Dict[str, torch.Tens
     out_h, out_w = _grid(images, config)
     if augment:
         with span("sd.train.augment"):
-            if images.dtype == torch.uint8:
-                images = (images.float() / 255.0).to(dtype)
-            else:
-                images = images.to(dtype)
+            images = _to_compute(images, dtype)
             images, kp = device_augment(images, kp, step_generator(config.seed, state.step),
                                         out_w=out_w, out_h=out_h, flip_prob=config.flip_prob,
                                         rank=index, world=ranks)

@@ -69,7 +69,7 @@ from ..tracing import span
 from ..utils import progress, resolve_device
 from .checkpoints import BestModelSaver, CheckpointManager
 from .state import TrainState, create_train_state, make_optimizer
-from .steps import eval_step, train_step
+from .steps import capture_train_step, eval_step, train_step
 
 STALL_EXIT_CODE = 87
 # under data parallelism the ranks agree on a stop (SIGTERM/SIGINT) every
@@ -413,10 +413,12 @@ class Trainer:
         """One throwaway train step per multi-scale size on a copy of the
         model and a fresh optimizer, before the first epoch: cuDNN's and
         the allocator's first use of each of the sizes then happens
-        before the stall watchdog is armed, not in a random epoch. The
-        real state is untouched. Returns the number of sizes warmed: 0
-        under data parallelism, as in the JAX package (each rank's first
-        step at a size is then cold)."""
+        before the stall watchdog is armed, not in a random epoch. After
+        each, where the train step replays a CUDA graph
+        (`train.graphs`), the real state's graph of that size is captured,
+        which runs nothing: the real state is untouched. Returns the number
+        of sizes warmed: 0 under data parallelism, as in the JAX package
+        (each rank's first step at a size is then cold)."""
         if self.process_count > 1:
             return 0
         cfg = self.config
@@ -427,14 +429,20 @@ class Trainer:
         state = TrainState(shadow, make_optimizer(shadow, self.lr_schedule(0)),
                            self.lr_schedule, step=self.state.step)
         t0 = time.monotonic()
+        captured = 0
         for w, h in sizes:
             images, kp = _zeros_batch(cfg.batch_size, h, w, cfg, image_dtype, self.device)
             stats = train_step(state, images, kp, cfg, augment=aug.device_augment)
             float(stats["total_loss"])  # waits for the step
+            captured += capture_train_step(self.state, images, kp, cfg, shadow,
+                                           augment=aug.device_augment, mesh=self.mesh)
             if self._watchdog is not None:
                 self._watchdog.beat()
         del state, shadow
-        print(f"Pre-warmed {len(sizes)} resolution buckets in {time.monotonic() - t0:.1f}s: "
+        if captured:  # the steps replay from the graphs' pool: give back the warm-ups' cache
+            torch.cuda.empty_cache()
+        print(f"Pre-warmed {len(sizes)} resolution buckets ({captured} train-step graphs "
+              f"captured) in {time.monotonic() - t0:.1f}s: "
               + ", ".join(f"{w}x{h}" for w, h in sizes), flush=True)
         return len(sizes)
 

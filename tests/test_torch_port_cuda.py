@@ -423,3 +423,123 @@ def test_int8_resnet50_on_card_equals_cpu():
             want = m.accumulate(inp)[0]
             got = m.cuda().accumulate(inp.cuda())[0].cpu()
             assert torch.equal(got, want), name
+
+
+def _graph_test_batch(cfg, size, b, seed):
+    """uint8 images of `size` (w, h) and padded keypoints, each valid one
+    on a grid cell of its own (no three gradients summed into one cell in
+    an order that may vary)."""
+    w, h = size
+    gw, gh = int(w // cfg.down_ratio), int(h // cfg.down_ratio)
+    rng = np.random.default_rng(seed)
+    o, p = cfg.max_objects, cfg.max_parts
+    cells = np.stack([rng.permutation(gw * gh)[:o + p] for _ in range(b)])
+    # inside [0, grid - 1/4]: the grid coordinates of input pixels, which the flips keep
+    xy = np.stack([cells % gw, cells // gw], -1) + rng.uniform(0.05, 0.7, (b, o + p, 2))
+    xy = xy.astype(np.float32)
+    kp = {"anchors_xy": xy[:, :o], "anchor_cls": rng.integers(0, 2, (b, o)).astype(np.int32),
+          "anchor_mask": rng.random((b, o)) < 0.6, "parts_xy": xy[:, o:],
+          "part_kind": np.zeros((b, p), np.int32),
+          "part_owner_xy": xy[:, rng.integers(0, o, p)].astype(np.float32),
+          "part_mask": rng.random((b, p)) < 0.8}
+    images = rng.integers(0, 256, (b, h, w, 3), dtype=np.uint8)
+    return (torch.from_numpy(images).cuda(),
+            {k: torch.from_numpy(np.ascontiguousarray(v)).cuda() for k, v in kp.items()})
+
+
+@pytest.mark.cuda
+def test_train_step_graphs_match_eager_on_card():
+    """Whole-step CUDA graphs (`train/graphs.py`) against eager steps on the
+    card, from one seeded state: float32 (TF32 off) with device
+    augmentation on uint8 images, 6 steps over two bucket sizes and a
+    schedule boundary (the rate falls at step 3). Both buckets are
+    captured ahead on the state as `Trainer.prewarm` does (a warm-up step
+    on a copy, then the capture); the eager runs keep a forward pre-hook
+    on the model, which keeps the step eager. cuDNN runs deterministic
+    algorithms in every run (it has none for some bf16 backward
+    convolutions, hence float32; the bf16 path is the benchmark's). The
+    graphed run's stats, parameters, BatchNorm buffers, Adam's moments and
+    the head its forward hook saw differ from the first eager run's by no
+    more than twice the second eager run's difference from it (bit for
+    bit where eager repeats itself bit for bit). The hook fires once a
+    replay; the stats and heads handed back stay as they were after later
+    replays of either bucket; 2 captures ahead, 2 more at the boundary, 6
+    replays."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import copy
+
+    from structuredetector_tpu_torch import tracing
+    from structuredetector_tpu_torch.config import Config
+    from structuredetector_tpu_torch.models.network import init_model
+    from structuredetector_tpu_torch.train.state import TrainState, create_train_state, \
+        make_optimizer
+    from structuredetector_tpu_torch.train.steps import capture_train_step, train_step
+    from structuredetector_tpu_torch.train.trainer import _zeros_batch
+
+    cfg = Config(width=128, height=128, fpn_depth=32, use_amp=False, epochs=2,
+                 lr_step=2).set_labels(["bean", "maize"], ["leaf"])
+    sizes, order, b = {"a": (128, 128), "b": (160, 96)}, "ababba", 8
+    batches = [_graph_test_batch(cfg, sizes[k], b, i) for i, k in enumerate(order)]
+    seeded = init_model(cfg).cuda()
+    cudnn = torch.backends.cudnn
+    flags = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    before = tracing.train_graph_counters()
+    try:
+        runs = {}
+        for name in ("eager1", "eager2", "graph"):
+            state = create_train_state(cfg, copy.deepcopy(seeded), steps_per_epoch=3)
+            if name == "graph":
+                for size in sizes.values():
+                    shadow = copy.deepcopy(state.model)
+                    warm = TrainState(shadow, make_optimizer(shadow, state.lr_schedule(0)),
+                                      state.lr_schedule)
+                    images, kp = _zeros_batch(b, size[1], size[0], cfg, torch.uint8, "cuda")
+                    train_step(warm, images, kp, cfg, augment=True)
+                    assert capture_train_step(state, images, kp, cfg, shadow, augment=True)
+            else:
+                state.model.register_forward_pre_hook(lambda *a: None)
+            heads = []
+            state.model.register_forward_hook(lambda m, a, out: heads.append(out))
+            stats, then = [], []
+            for images, kp in batches:
+                stats.append(train_step(state, images, kp, cfg, augment=True))
+                then.append(({k: v.clone() for k, v in stats[-1].items()}, heads[-1].clone()))
+            torch.cuda.synchronize()
+            runs[name] = dict(state=state, stats=stats, heads=heads, then=then)
+    finally:
+        cudnn.deterministic, cudnn.benchmark = flags
+    after = tracing.train_graph_counters()
+    assert after["captures"] - before["captures"] == 4
+    assert after["replays"] - before["replays"] == len(order)
+    assert after["eager"]["first_use"] - before["eager"].get("first_use", 0) == 2
+    assert after["eager"]["pre_hooks"] - before["eager"].get("pre_hooks", 0) == 2 * len(order)
+    assert after["pool_bytes"] > before["pool_bytes"]
+
+    graph = runs["graph"]
+    assert len(graph["heads"]) == len(order)
+    for (stats, head), got_stats, got_head in zip(graph["then"], graph["stats"], graph["heads"]):
+        assert torch.equal(got_head, head)
+        for k in stats:
+            assert torch.equal(got_stats[k], stats[k]), k
+
+    def quantities(run):
+        state, opt = run["state"], run["state"].optimizer
+        params = list(state.model.parameters())
+        return {"stats": [v for s in run["stats"] for v in s.values()],
+                "heads": [h.detach() for h in run["heads"]],
+                "params": params, "buffers": list(state.model.buffers()),
+                "exp_avg": [opt.state[p]["exp_avg"] for p in params],
+                "exp_avg_sq": [opt.state[p]["exp_avg_sq"] for p in params],
+                "adam_step": [opt.state[p]["step"] for p in params]}
+
+    def gap(xs, ys):
+        return max(float((x.detach().double() - y.detach().double()).abs().max())
+                   for x, y in zip(xs, ys))
+
+    e1, e2, g = (quantities(runs[n]) for n in ("eager1", "eager2", "graph"))
+    gaps = {k: (gap(e2[k], e1[k]), gap(g[k], e1[k])) for k in e1}
+    print("eager2 vs eager1, graph vs eager1:", gaps)
+    for k, (eager_gap, graph_gap) in gaps.items():
+        assert graph_gap <= 2 * eager_gap, (k, gaps)
