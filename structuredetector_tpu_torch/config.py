@@ -214,11 +214,13 @@ class Config:
         # imported here: the package's import of Config loads neither
         # the models nor torch.distributed's groups
         from .models.resnet import ARCHS
+        from .models.swin import ARCHS as SWIN_ARCHS
         from .parallel.mesh import mesh_shape, world_size
 
         # data x model must be the number of ranks torchrun started
         mesh_shape(self.data_parallel, self.model_parallel, world_size())
-        if self.backbone not in ARCHS:
+        # the JAX package's message: the Swin encoders are the port's own
+        if self.backbone not in ARCHS and self.backbone not in SWIN_ARCHS:
             raise ValueError(
                 f"unknown backbone {self.backbone!r}: pick one of {sorted(ARCHS)}"
             )
@@ -388,8 +390,9 @@ def build_parser(parser: Optional[argparse.ArgumentParser] = None) -> argparse.A
                    help="Ship the training batch as float32 [0, 1] instead of raw "
                         "uint8 (device augment only).")
     p.add_argument("--backbone", type=str, default=d.backbone,
-                   choices=["resnet18", "resnet34", "resnet50"],
-                   help="Encoder family (reference ships resnet34).")
+                   choices=["resnet18", "resnet34", "resnet50", "swin_v2_b"],
+                   help="Encoder family (reference ships resnet34; swin_v2_b: "
+                        "Swin Transformer V2-B).")
     p.add_argument("--s2d_stem", action="store_true",
                    help="Space-to-depth stem: equivalent 4x4/1 conv on 12 "
                         "channels instead of 7x7/2 on 3 (changes the checkpoint "

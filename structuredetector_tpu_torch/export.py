@@ -43,6 +43,7 @@ import torch.nn as nn
 
 from .models.network import build_model, no_tf32
 from .models.quantize import prequantize_variables
+from .models.swin import ARCHS as SWIN_ARCHS
 from .ops.device_augment import IMAGENET_MEAN, IMAGENET_STD
 from .ops.tensor import clamped_sigmoid, plateau_nms
 from .utils import resolve_device
@@ -118,6 +119,10 @@ def export_model(config, weights: Mapping[str, torch.Tensor], path, batch_size: 
     if uint8_input and not fold_normalization:
         raise ValueError("uint8_input requires fold_normalization (the graph must own "
                          "the /255 + mean/std normalization)")
+    if config.backbone in SWIN_ARCHS:
+        # the artifact's params.json carries the JAX package's keys
+        raise ValueError(f"export is not supported for the {config.backbone} encoder: the "
+                         ".sdz artifact holds the JAX package's ResNet layout")
     device = resolve_device(device)
     model = build_model(config)
     model.load_state_dict(weights, strict=True)

@@ -1,13 +1,16 @@
-"""SDNet: ResNet encoder + FPN decoder + head, NCHW.
+"""SDNet: ResNet or Swin V2 encoder + FPN decoder + head, NCHW.
 
 The port of `structuredetector_tpu/models/network.py`; the structure and
 the module names are the reference `Network`'s
 (`/root/reference/src/sdnet/model/network.py:32-87`):
 
-- `adpater` + `down1..down4`: the encoder (stages C2..C5,
-  `ResNetEncoder`, which `SDNet` extends), resnet34 as in the
-  reference, or resnet18 / resnet50 (`backbone`), with the 7x7 or the
-  space-to-depth stem (`s2d_stem`),
+- `adpater` + `down1..down4`: the encoder (stages C2..C5, `add_resnet`,
+  as `ResNetEncoder` holds it), resnet34 as in the reference, or
+  resnet18 / resnet50 (`backbone`), with the 7x7 or the space-to-depth
+  stem (`s2d_stem`); or, with `backbone="swin_v2_b"`, `encoder`: the
+  Swin Transformer V2-B of `models.swin` (C2..C5 of 128..1024
+  channels), which `--int8`, `--s2d_stem` and the model axis's plans
+  refuse with a ValueError,
 - `up1`: 1x1 conv C5 -> fpn_depth (512 channels, 2048 for resnet50),
 - `up2..up4`: FPN blocks: nearest x2 upsample + 1x1 lateral conv on the
   skip + sum + 3x3 conv(bias=False) + BN + ReLU,
@@ -35,6 +38,7 @@ inference-only: a train-mode forward raises.
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import Optional
 
 import torch
@@ -44,6 +48,8 @@ import torch.nn.functional as F
 from ..ops.decode import split_head_output
 from .quantize import swap_int8_convs
 from .resnet import ARCHS, STAGE_WIDTHS, BatchNorm2d, Bottleneck, stage, stage_channels, stem
+from .swin import ARCHS as SWIN_ARCHS
+from .swin import ShiftedWindowAttentionV2, SwinV2Encoder
 
 
 def upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:
@@ -161,56 +167,79 @@ def _block(plan, block: nn.Module, a):
     return plan.relu(plan.add(y, identity))
 
 
+def add_resnet(module: nn.Module, in_channels: int, backbone: str, s2d_stem: bool) -> None:
+    """The ResNet encoder's modules on `module`, under the reference's
+    names: the stem `adpater` (the 7x7/2 conv or the space-to-depth one,
+    BN, ReLU, the 3x3/2 max pool), then the stages `down1..down4`."""
+    module.adpater = stem(in_channels, s2d=s2d_stem)
+    block, stage_sizes = ARCHS[backbone]
+    in_ch = 64
+    for i, (n_blocks, width) in enumerate(zip(stage_sizes, STAGE_WIDTHS), start=1):
+        setattr(module, f"down{i}", stage(block, in_ch, width, n_blocks, 1 if i == 1 else 2))
+        in_ch = width * block.expansion
+
+
+def resnet_encode(module: nn.Module, plan, a) -> list:
+    """The ResNet encoder's walk under `plan` from the entered input `a`:
+    the four stages' outputs."""
+    conv, bn, _, pool = module.adpater
+    a = plan.maxpool(pool, plan.relu(plan.bn(bn, plan.conv(conv, a))))
+    stages = []
+    for i in range(1, 5):
+        for block in getattr(module, f"down{i}"):
+            a = _block(plan, block, a)
+        stages.append(a)
+    return stages
+
+
 class ResNetEncoder(nn.Module):
     """The encoder (JAX `ResNet34Encoder`, which builds every `ARCHS`
-    backbone despite its name): the stem `adpater` (the 7x7/2 conv or the
-    space-to-depth one, BN, ReLU, the 3x3/2 max pool), then the stages
-    `down1..down4`, under the reference's module names. `forward` returns
+    backbone despite its name): `add_resnet`'s modules. `forward` returns
     (C2, C3, C4, C5) at strides 4, 8, 16 and 32, NCHW, in the caller's
-    precision. `SDNet` is one, so its state_dict keys stay the
-    reference's."""
+    precision. A ResNet `SDNet` holds the same modules under the same
+    names, so its state_dict keys stay the reference's."""
 
     def __init__(self, in_channels: int = 3, backbone: str = "resnet34",
                  s2d_stem: bool = False):
         super().__init__()
         self.backbone = backbone
-        self.adpater = stem(in_channels, s2d=s2d_stem)
-        block, stage_sizes = ARCHS[backbone]
-        in_ch = 64
-        for i, (n_blocks, width) in enumerate(zip(stage_sizes, STAGE_WIDTHS), start=1):
-            setattr(self, f"down{i}", stage(block, in_ch, width, n_blocks, 1 if i == 1 else 2))
-            in_ch = width * block.expansion
-
-    def encode(self, plan, a) -> list:
-        """The encoder's walk under `plan` from the entered input `a`: the
-        four stages' outputs."""
-        conv, bn, _, pool = self.adpater
-        a = plan.maxpool(pool, plan.relu(plan.bn(bn, plan.conv(conv, a))))
-        stages = []
-        for i in range(1, 5):
-            for block in getattr(self, f"down{i}"):
-                a = _block(plan, block, a)
-            stages.append(a)
-        return stages
+        add_resnet(self, in_channels, backbone, s2d_stem)
 
     def forward(self, x: torch.Tensor):
-        return tuple(self.encode(PLAIN, x))
+        return tuple(resnet_encode(self, PLAIN, x))
 
 
-class SDNet(ResNetEncoder):
+def swin_unsupported(what: str, backbone: str) -> ValueError:
+    return ValueError(f"{what} is not supported for the {backbone} encoder: it holds "
+                      "for the ResNet encoders' convolutions only")
+
+
+class SDNet(nn.Module):
     """Anchor+parts structure detection network, output stride 4."""
 
     def __init__(self, n_labels: int, n_parts: int, fpn_depth: int = 128,
                  in_channels: int = 3, dtype: torch.dtype = torch.float32,
                  int8: bool = False, backbone: str = "resnet34", s2d_stem: bool = False,
                  head_conv: int = 0):
-        super().__init__(in_channels, backbone, s2d_stem)
+        super().__init__()
+        self.backbone = backbone
         self.n_labels = n_labels
         self.n_parts = n_parts
         self.dtype = dtype
         self.int8 = int8
-        # the FPN reads C2..C5 at the block's widths (resnet50: 256..2048)
-        c2, c3, c4, c5 = stage_channels(backbone)
+        # the FPN reads C2..C5 at the encoder's widths (resnet50: 256..2048,
+        # swin_v2_b: 128..1024)
+        self.swin = backbone in SWIN_ARCHS
+        if self.swin:
+            if int8:
+                raise swin_unsupported("--int8", backbone)
+            if s2d_stem:
+                raise swin_unsupported("--s2d_stem", backbone)
+            self.encoder = SwinV2Encoder(in_channels, SWIN_ARCHS[backbone])
+            c2, c3, c4, c5 = self.encoder.widths
+        else:
+            add_resnet(self, in_channels, backbone, s2d_stem)
+            c2, c3, c4, c5 = stage_channels(backbone)
         self.up1 = nn.Conv2d(c5, fpn_depth, 1)
         self.up2 = FpnBlock(c4, fpn_depth)
         self.up3 = FpnBlock(c3, fpn_depth)
@@ -233,14 +262,19 @@ class SDNet(ResNetEncoder):
         One walk of the modules, each op placed by `partition`: None (one
         process, `PlainPlan`), or a plan of the mesh's model axis
         (`parallel.partition`), under which x is this rank's whole input
-        and every rank of its model group returns the whole output."""
+        and every rank of its model group returns the whole output. A Swin
+        encoder runs in one process only."""
         if self.int8 and self.training:
             raise ValueError("int8 is an inference-only mode; train in float")
         if self.int8 and partition is not None:
             raise ValueError("an int8 model is not partitioned over the model axis")
+        if self.swin and partition is not None:
+            raise swin_unsupported("a model-axis plan (--model_parallel, spatial rows)",
+                                   self.backbone)
         plan = PLAIN if partition is None else partition
         with _precision(self.dtype, x.device):
-            c2, c3, c4, c5 = self.encode(plan, plan.enter(x))
+            a = plan.enter(x)
+            c2, c3, c4, c5 = self.encoder(a) if self.swin else resnet_encode(self, plan, a)
             f = plan.conv(self.up1, c5)
             for up, skip in ((self.up2, c4), (self.up3, c3), (self.up4, c2)):
                 f = plan.add(plan.upsample(f), plan.conv(up.lateral, skip))
@@ -274,11 +308,13 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
     standard deviations), zero biases, unit BN scales. An untrained
     model in eval mode then keeps its maps O(1), so its detections land
     inside the image (torchvision's fan-out He init grows them to ~1e3
-    over 40 layers without batch statistics)."""
+    over 40 layers without batch statistics). A Swin encoder's Linears
+    (the position-bias MLP's too) draw the same way, its LayerNorms are
+    unit scales and zero shifts, its logit scales ln 10."""
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for m in model.modules():
-            if isinstance(m, nn.Conv2d):
+            if isinstance(m, (nn.Conv2d, nn.Linear)):
                 fan_in = m.weight[0].numel()
                 # flax's truncated_normal: std corrected for the cut at +-2
                 std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
@@ -286,8 +322,10 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
                                       generator=g)
                 if m.bias is not None:
                     m.bias.zero_()
-            elif isinstance(m, nn.BatchNorm2d):
+            elif isinstance(m, (nn.BatchNorm2d, nn.LayerNorm)):
                 m.reset_parameters()
+            elif isinstance(m, ShiftedWindowAttentionV2):
+                m.logit_scale.fill_(math.log(10.0))
     return model
 
 

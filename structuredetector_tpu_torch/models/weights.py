@@ -26,6 +26,12 @@ becomes a state_dict (OIHW kernels); `jax_tree_from_state_dict` is its
 inverse, so the port writes checkpoints the JAX package loads
 (`save_msgpack`). A torchvision resnet18, resnet34 or resnet50 ImageNet
 state_dict warm-starts the encoder (`load_imagenet_encoder`).
+A Swin encoder (`models.swin`, `encoder.*` keys in torchvision's layout)
+loads and saves as `.pth` only: the JAX package's `.msgpack` layout has
+no Swin encoder, so writing or reading one for it raises a ValueError
+naming the encoder, and the trainer's snapshots of a Swin model are
+`.pth` (`save_snapshot`). A torchvision `swin_v2_b` state_dict
+warm-starts its encoder.
 Int8 state crosses too: a tree from JAX `prequantize_variables` (int8
 HWIO kernels with `kernel_scale`) and from
 `calibrate_activation_scales` (`act_scale`) maps onto the port's int8
@@ -44,8 +50,20 @@ import torch
 
 from . import msgpack
 from .resnet import stem_kernel_to_s2d
+from .swin import ARCHS as SWIN_ARCHS
 
 STEM = "adpater.0.weight"
+SWIN = "encoder.features."  # the key prefix of a Swin encoder's state
+
+
+def swin_encoder(sd: Mapping[str, Any]) -> bool:
+    """Whether a state_dict holds a Swin encoder (`models.swin`)."""
+    return any(k.startswith(SWIN) for k in sd)
+
+
+def no_msgpack(what: str) -> ValueError:
+    return ValueError(f"{what}: the JAX package's .msgpack layout has no swin_v2_b "
+                      "encoder; a Swin model is saved and loaded as .pth")
 
 
 def _conv_oihw(kernel) -> torch.Tensor:
@@ -124,7 +142,9 @@ def _np(t: torch.Tensor) -> np.ndarray:
 def jax_tree_from_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     """The port's state_dict -> the JAX package's `{'params',
     'batch_stats'}` tree of numpy arrays; `state_dict_from_jax` inverts
-    it."""
+    it. A Swin encoder raises: the tree has no layout for it."""
+    if swin_encoder(sd):
+        raise no_msgpack("save_msgpack")
 
     def conv(prefix):
         out = {"kernel": _hwio(sd[f"{prefix}.weight"])}
@@ -179,7 +199,13 @@ def _architecture(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
         return int(sd[key].shape[axis]) if key in sd else None
 
     stem = tuple(sd[STEM].shape[2:]) if STEM in sd else None
+    swin = None
+    if swin_encoder(sd):
+        depths = tuple(len({k.split(".")[3] for k in sd if k.startswith(f"{SWIN}{i}.")})
+                       for i in (1, 3, 5, 7))
+        swin = (dim("encoder.features.0.0.weight", 0), depths)
     return {
+        "encoder (resnet, or Swin V2 embed width and blocks per stage)": swin or "resnet",
         "fpn_depth": dim("up1.weight", 0),
         "head outputs (labels + parts + 4)": dim("head.conv.weight", 0),
         "input channels": None if stem is None
@@ -251,6 +277,8 @@ def load_weights(model: torch.nn.Module, path) -> torch.nn.Module:
     adapted (`adapt_stem`): another architecture raises a ValueError that
     names the difference; a missing, extra or differently shaped tensor
     beyond that raises too."""
+    if Path(path).suffix == ".msgpack" and swin_encoder(model.state_dict()):
+        raise no_msgpack(str(path))
     sd = adapt_stem(load_checkpoint(path), model.state_dict())
     check_architecture(model, sd, source=str(path))
     model.load_state_dict(sd, strict=True)
@@ -270,6 +298,23 @@ def save_msgpack(weights, path) -> Path:
     return path
 
 
+def save_snapshot(weights, path) -> Path:
+    """Write a model's weights (the module or its state_dict) at `path`
+    plus the suffix its layout takes: `.msgpack` (`save_msgpack`), or
+    `.pth` (`torch.save` of the state_dict on the CPU, replaced
+    atomically) for a Swin encoder, which the `.msgpack` layout lacks.
+    Returns the file written."""
+    sd = weights.state_dict() if isinstance(weights, torch.nn.Module) else weights
+    path = Path(path)
+    if not swin_encoder(sd):
+        return save_msgpack(sd, path.with_name(path.name + ".msgpack"))
+    path = path.with_name(path.name + ".pth")
+    tmp = path.with_name(path.name + ".tmp")
+    torch.save({k: v.detach().cpu() for k, v in sd.items()}, tmp)
+    os.replace(tmp, path)
+    return path
+
+
 def export_reference_state_dict(weights) -> "OrderedDict[str, torch.Tensor]":
     """A model's weights (the port's SDNet or its state_dict, whole: a
     sharded model's `ChannelPlan.full_state_dict`) as the reference's
@@ -279,6 +324,9 @@ def export_reference_state_dict(weights) -> "OrderedDict[str, torch.Tensor]":
     written: `--head_conv`, resnet18 and resnet50 raise with JAX's
     reasons, a prequantized int8 model raises too."""
     sd = weights.state_dict() if isinstance(weights, torch.nn.Module) else weights
+    if swin_encoder(sd):
+        raise ValueError("the reference Network has a ResNet-34 encoder; a swin_v2_b "
+                         "model has no reference-layout .pth")
     if "head_hidden.weight" in sd:
         raise ValueError(
             "--head_conv deep head has no reference counterpart; only the "
@@ -343,10 +391,24 @@ def find_imagenet_resnet34(backbone: str = "resnet34") -> Path:
         "(or $TORCH_HOME), or pass a model with --load_model")
 
 
+# the constants torchvision's Swin V2 keeps as buffers; the port builds them
+_SWIN_CONSTANTS = ("relative_coords_table", "relative_position_index")
+
+
 def _torchvision_arch(sd: Mapping[str, Any]) -> str:
     """Which torchvision resnet a state_dict is, as JAX
     `torch_bridge.py::_detect_arch` tells: Bottleneck blocks carry a
-    `conv3`, resnet18 has no `layer1.2`."""
+    `conv3`, resnet18 has no `layer1.2`; or which of the port's Swin V2
+    encoders (`models.swin.ARCHS`: embed width, blocks per stage) it is."""
+    if "features.1.0.attn.cpb_mlp.0.weight" in sd:
+        embed = int(sd["features.0.0.weight"].shape[0])
+        depths = tuple(len({k.split(".")[2] for k in sd if k.startswith(f"features.{i}.")})
+                       for i in (1, 3, 5, 7))
+        for name, spec in SWIN_ARCHS.items():
+            if (spec.embed, spec.depths) == (embed, depths):
+                return name
+        raise ValueError(f"a torchvision Swin V2 of embed {embed} and blocks {depths}: the "
+                         f"port's Swin encoders are {sorted(SWIN_ARCHS)}")
     if "layer1.0.conv3.weight" in sd:
         return "resnet50"
     if "layer1.2.conv1.weight" in sd:
@@ -360,9 +422,13 @@ def load_imagenet_encoder(model: torch.nn.Module, path) -> torch.nn.Module:
     """Load a torchvision resnet18, resnet34 or resnet50 state_dict into
     the SDNet's encoder (`conv1`/`bn1` -> `adpater.{0,1}`, `layer{i}` ->
     `down{i}`; `fc` is dropped; a 7x7 stem into an `--s2d_stem` model
-    through `adapt_stem`). The family must be the model's backbone and
-    every encoder tensor must be there (`num_batches_tracked` may not);
-    the FPN and the head keep their values."""
+    through `adapt_stem`), or a torchvision `swin_v2_b` one into a Swin
+    encoder (`features.*` -> `encoder.features.*`, the classifier's final
+    `norm` -> C5's `encoder.norms.3`; `head` and the table and index
+    buffers are dropped, C2..C4's norms keep their values). The family
+    must be the model's backbone and every encoder tensor must be there
+    (`num_batches_tracked` may not); the FPN and the head keep their
+    values."""
     src = torch.load(path, map_location="cpu", weights_only=True)
     arch = _torchvision_arch(src)
     if arch != model.backbone:
@@ -371,7 +437,12 @@ def load_imagenet_encoder(model: torch.nn.Module, path) -> torch.nn.Module:
     sd = {}
     for key, value in src.items():
         head, _, rest = key.partition(".")
-        if head == "conv1":
+        if model.swin:
+            if head == "features" and not key.endswith(_SWIN_CONSTANTS):
+                sd[f"encoder.{key}"] = value
+            elif head == "norm":
+                sd[f"encoder.norms.3.{rest}"] = value
+        elif head == "conv1":
             sd[f"adpater.0.{rest}"] = value
         elif head == "bn1":
             sd[f"adpater.1.{rest}"] = value
@@ -381,7 +452,8 @@ def load_imagenet_encoder(model: torch.nn.Module, path) -> torch.nn.Module:
     sd = adapt_stem(sd, model_sd)
     # torchvision's published checkpoints predate `num_batches_tracked`,
     # which JAX's bridge does not read either
-    encoder = {k for k in model_sd if k.startswith(("adpater.", "down"))}
+    encoder = {k for k in model_sd if k.startswith(("adpater.", "down", "encoder."))
+               and not k.startswith(("encoder.norms.0.", "encoder.norms.1.", "encoder.norms.2."))}
     missing = sorted(k for k in encoder - set(sd) if not k.endswith(".num_batches_tracked"))
     extra = sorted(set(sd) - encoder)
     if missing or extra:

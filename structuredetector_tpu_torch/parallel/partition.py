@@ -329,7 +329,12 @@ def shard_model(model: nn.Module, mesh: Mesh) -> ChannelPlan:
     and BN buffers under the same names). Returns the `ChannelPlan` that
     every forward of the model then takes (`SDNet.forward(partition=)`)
     and its train state keeps (`TrainState.partition`). Build the
-    optimizer after this: its moments are then slices too."""
+    optimizer after this: its moments are then slices too. A Swin encoder
+    raises: the plans place convolutions only."""
+    if getattr(model, "swin", False):
+        raise ValueError("the model axis (--model_parallel, ChannelPlan) is not supported "
+                         f"for the {model.backbone} encoder: its plans place the ResNet "
+                         "encoders' convolutions only")
     sd = model.state_dict()
     names = param_shardings(sd, mesh.model)
     plan = ChannelPlan(mesh, names)

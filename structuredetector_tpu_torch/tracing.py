@@ -25,6 +25,10 @@ Spans of one batch or step are tied together by nesting and order:
 - training (`train/trainer.py`, `train/steps.py`): `sd.train.step` over
   `sd.train.augment`, `sd.train.encode`, `sd.train.forward` (the loss
   included), `sd.train.backward`, `sd.train.optimizer`;
+- the Swin encoder (`models/swin.py`): `sd.swin.embed` (the patch
+  embedding), `sd.swin.attn` (a block's attention core, from padding,
+  shift and partition to reverse and crop, without qkv and proj),
+  `sd.swin.mlp` (a block's MLP), `sd.swin.merge` (a patch merging);
 - `sd.gc.gen0/1/2`: each collection of the garbage collector, from the
   `gc.callbacks` hook this module installs once on import. The hook
   also keeps counters whether or not anyone profiles; `counters()`
@@ -35,6 +39,12 @@ Spans of one batch or step are tied together by nesting and order:
 the reason a graph could not serve them, and the device memory reserved
 while capturing (the graphs' shared pool). They are kept apart from the
 collector's counters, which `/healthz` reports as `"gc"`.
+
+`swin_counters()` counts the Swin encoder's work as Python runs it:
+forwards, windows attended (summed over blocks) and padded tokens
+(tokens a block's attention added to reach a multiple of the window,
+summed over blocks). A replayed CUDA graph runs no Python, so its
+forwards are not counted.
 """
 
 from __future__ import annotations
@@ -46,7 +56,7 @@ import time
 from torch.autograd import profiler as _profiler
 from torch.profiler import record_function
 
-__all__ = ["span", "counters", "train_graph_counters"]
+__all__ = ["span", "counters", "train_graph_counters", "swin_counters"]
 
 _NULL = contextlib.nullcontext()
 
@@ -137,3 +147,30 @@ def train_graph_counters() -> dict:
     "replays", "eager": {reason: steps}, "pool_bytes"}` (`pool_bytes`: the
     device memory reserved during the captures)."""
     return TRAIN_GRAPH.snapshot()
+
+
+class SwinCounter:
+    """The Swin encoder's forwards, windows and padded tokens, counted by
+    `models.swin` in every process, profiled or not."""
+
+    def __init__(self):
+        self.forwards = 0
+        self.windows = 0
+        self.padded_tokens = 0
+
+    def attended(self, windows: int, padded_tokens: int) -> None:
+        self.windows += windows
+        self.padded_tokens += padded_tokens
+
+    def snapshot(self) -> dict:
+        return {"forwards": self.forwards, "windows": self.windows,
+                "padded_tokens": self.padded_tokens}
+
+
+SWIN = SwinCounter()
+
+
+def swin_counters() -> dict:
+    """The Swin encoder since this module was imported: `{"forwards",
+    "windows", "padded_tokens"}`."""
+    return SWIN.snapshot()

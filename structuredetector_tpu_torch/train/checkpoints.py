@@ -12,7 +12,8 @@ The port of `structuredetector_tpu/train/checkpoints.py`:
   validation (`trainer.py:226-237`): model_best_loss / _csi / _classif /
   _kp_reg, written as the JAX package's `.msgpack`
   (`models.weights.save_msgpack`), so both packages' `evaluate
-  --load_model` read them. The best metrics persist in
+  --load_model` read them; a Swin model's as `.pth`, which that layout
+  lacks (`models.weights.save_snapshot`). The best metrics persist in
   `best_metrics.json` across `--resume`, with the epoch of each capture
   for the end-of-run staleness report.
 
@@ -32,7 +33,7 @@ from typing import Mapping, Optional
 
 import torch
 
-from ..models.weights import save_msgpack
+from ..models.weights import save_snapshot
 from .state import TrainState
 
 _STATE_FILE = re.compile(r"step_(\d+)\.pt")
@@ -98,6 +99,7 @@ class BestModelSaver:
         self.best_kp_reg = 0.0
         # epoch each snapshot was captured at (-1 = never)
         self.captured_epoch = {k: -1 for k in self.KINDS}
+        self.files = {}  # kind -> the file name of its latest snapshot
         self._load()
 
     def _load(self):
@@ -150,7 +152,7 @@ class BestModelSaver:
         if saved:
             self.save_dir.mkdir(parents=True, exist_ok=True)
         for k in saved:
-            save_msgpack(weights, self.save_dir / f"model_best_{k}.msgpack")
+            self.files[k] = save_snapshot(weights, self.save_dir / f"model_best_{k}").name
             self.captured_epoch[k] = epoch
         if saved:
             self._persist()
@@ -166,6 +168,7 @@ class BestModelSaver:
             age = final_epoch - e
             flag = "  <-- STALE: metric froze early, prefer another snapshot" \
                 if age > stale_after else ""
-            lines.append(f"model_best_{k}.msgpack: captured at epoch {e} "
+            name = self.files.get(k, f"model_best_{k}.msgpack")
+            lines.append(f"{name}: captured at epoch {e} "
                          f"({age} epochs before the end){flag}")
         return lines

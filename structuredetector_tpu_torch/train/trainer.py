@@ -61,7 +61,7 @@ from ..models.weights import (
     load_checkpoint,
     load_imagenet_encoder,
     load_weights,
-    save_msgpack,
+    save_snapshot,
 )
 from ..parallel.mesh import create_mesh
 from ..parallel.partition import shard_model, share_over_model
@@ -396,7 +396,7 @@ class Trainer:
         if self.is_lead:
             self.checkpoints.save_state(self.global_step, state)
             if weights is not None:
-                save_msgpack(weights, self.save_dir / "ema_params.msgpack")
+                save_snapshot(weights, self.save_dir / "ema_params")
 
     def _preemption_save(self):
         # a long save is progress: the watchdog must not exit mid-write
@@ -700,8 +700,11 @@ class Trainer:
         self.global_step = self.state.step * self.config.batch_size
         if self.config.ema > 0:
             self.ema_params = self._param_copy()
-            ema_file = self.save_dir / "ema_params.msgpack"
-            if ema_file.exists():
+            # .pth for a Swin model (`save_snapshot`)
+            ema_file = next((f for f in (self.save_dir / "ema_params.msgpack",
+                                         self.save_dir / "ema_params.pth") if f.exists()),
+                            None)
+            if ema_file is not None:
                 try:
                     sd = load_checkpoint(ema_file)
                     if self.partition is not None:

@@ -448,9 +448,12 @@ def _graph_test_batch(cfg, size, b, seed):
 
 
 @pytest.mark.cuda
-def test_train_step_graphs_match_eager_on_card():
+@pytest.mark.parametrize("backbone", ["resnet34", "swin_v2_b"])
+def test_train_step_graphs_match_eager_on_card(backbone):
     """Whole-step CUDA graphs (`train/graphs.py`) against eager steps on the
-    card, from one seeded state: float32 (TF32 off) with device
+    card, from one seeded state, on the ResNet-34 and the Swin V2-B
+    encoder (whose stages 2-4 pad to the window in the 160x96 bucket):
+    float32 (TF32 off) with device
     augmentation on uint8 images, 6 steps over two bucket sizes and a
     schedule boundary (the rate falls at step 3). Both buckets are
     captured ahead on the state as `Trainer.prewarm` does (a warm-up step
@@ -478,7 +481,7 @@ def test_train_step_graphs_match_eager_on_card():
     from structuredetector_tpu_torch.train.trainer import _zeros_batch
 
     cfg = Config(width=128, height=128, fpn_depth=32, use_amp=False, epochs=2,
-                 lr_step=2).set_labels(["bean", "maize"], ["leaf"])
+                 lr_step=2, backbone=backbone).set_labels(["bean", "maize"], ["leaf"])
     sizes, order, b = {"a": (128, 128), "b": (160, 96)}, "ababba", 8
     batches = [_graph_test_batch(cfg, sizes[k], b, i) for i, k in enumerate(order)]
     seeded = init_model(cfg).cuda()
