@@ -22,7 +22,14 @@ of JAX or of the JAX package. Phases, one JSON line each:
    k = 1, 20, 40 and from it kernel C's cost a round, kernel C's cluster
    occupancy (cudaOccupancyMaxActiveClusters) at the serving shapes,
    each kernel's share of its bound, and the SM clock and power of the
-   timed card sampled beside the window;
+   timed card sampled beside the window; then the Swin core's kernel
+   (csrc/swin_window_attention.cu) on the inputs of one seeded Swin-B
+   SDNet forward at the swinv2b-infer-b32 cell's shapes (batch 32,
+   512x512, bf16): its launches counted around that forward (24), each
+   stage's even and odd block against the plain version in bf16 (the card
+   test's bar, head by head) and float32 (1e-5), and the kernel, the
+   plain version and the SDPA path it replaced timed per block, summed
+   over the forward beside the bound of its bytes;
    with `--parent DIR` (a checkout of another commit), also that
    checkout's kernels A, B and C, called through its own public
    wrappers, against these, in turns (old, new, new, old), and its
@@ -169,7 +176,8 @@ of JAX or of the JAX package. Phases, one JSON line each:
 
 Each main path is driven with the launch counts set to 0 just before it
 and read just after; the `kernels` line gives each kernel's launches by
-path (`launches_by_path`, native_io included). Then the `{"kernels": [...]}` line, the nvidia-smi
+path (`launches_by_path`, native_io included, the kernels phase's Swin
+forward as `swin_forward`). Then the `{"kernels": [...]}` line, the nvidia-smi
 line, and last `{"ok": true, "device": {...}}`. Any failure raises and
 exits non-zero; without CUDA, or without the package beside this file,
 it exits 2 and prints no result.
@@ -246,7 +254,7 @@ def phase_build() -> dict:
 
     native_thread = threading.Thread(target=build_native)
     native_thread.start()
-    seconds = _build.build_all()
+    seconds = _build.build()
     native_thread.join()
     report = {name: [ln.strip() for ln in log.splitlines() if "Used" in ln]
               for name, log in _build.build_log.items()}
@@ -382,8 +390,133 @@ def edge_cases(rng):
             "thin 65536x1": (logits(1, 65536, 1), 40)}
 
 
-def phase_kernels(card: str) -> dict:
-    """Bit-exactness and timings; returns the per-kernel measurements."""
+def _swin_kernel_tests():
+    """The Swin core's card test module: its bf16 bar
+    (`assert_within_bf16_rounding`) and `sdpa_core`, the core as the port
+    ran it before the kernel (the library yardstick)."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import test_torch_port_swin_kernel
+
+    return test_torch_port_swin_kernel
+
+
+def swin_window_attention_entry() -> tuple:
+    """The Swin core's kernel on the inputs of one seeded Swin-B SDNet
+    forward at the swinv2b-infer-b32 cell's shapes (batch 32, 512x512,
+    bf16 autocast): the launch counts reset just before that forward and
+    read just after it (24, one a block), then for the first block of each
+    stage, even and odd, the kernel against `window_attention_reference`
+    in bf16 (the card test's bar, head by head) and in float32 (within
+    1e-5 of the largest output, TF32 off), bit for bit between two
+    launches, and the device ms of the kernel in bf16 and float32, of the
+    plain version and of the SDPA path it replaced. The forward's totals
+    weigh each block's ms by its count; the bound is the bytes of that
+    run's inputs (qkv, the biases, the logit scales) and output at
+    HBM_BYTES_PER_S. Returns the kernel's entry and the forward's launch
+    counts."""
+    import torch
+
+    from structuredetector_tpu_torch.models import swin
+    from structuredetector_tpu_torch.models.network import SDNet
+    from structuredetector_tpu_torch.ops.kernels import (
+        launch_counts,
+        reset_launch_counts,
+        window_attention,
+        window_attention_reference,
+    )
+
+    tests = _swin_kernel_tests()
+    torch.manual_seed(20261018)
+    model = SDNet(2, 1, 128, dtype=torch.bfloat16, backbone="swin_v2_b").cuda().eval()
+    x = torch.randn(32, 3, 512, 512, device="cuda")
+    calls = []
+
+    def recorded(qkv, *rest):
+        calls.append((qkv, *rest))
+        return window_attention(qkv, *rest)
+
+    with torch.no_grad(), _patched(swin, "window_attention", recorded):
+        model(x, raw_output=True)  # warm: builds the kernel
+        calls.clear()
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        model(x, raw_output=True)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+    del model
+    if counts["swin_window_attention"] != 24 or len(calls) != 24:
+        raise AssertionError(f"a Swin-B forward launched {counts['swin_window_attention']} "
+                             f"window-attention kernels over {len(calls)} blocks, not 24")
+
+    def key(call):
+        return f"stage{1 + {128: 0, 64: 1, 32: 2, 16: 3}[call[0].shape[1]]}." + (
+            "odd" if call[4] else "even")
+
+    def n_bytes(call):
+        qkv = call[0]
+        return (qkv.numel() * 4 // 3 * qkv.element_size()
+                + sum(t.numel() * t.element_size() for t in call[1:4]))
+
+    blocks = {}
+    plain_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    clocks = {}
+    try:
+        with torch.no_grad(), sampled_clocks(clocks):
+            for call in calls:
+                if key(call) in blocks:
+                    continue
+                qkv, bias, pos, scale, odd = call
+                if qkv.dtype != torch.bfloat16:
+                    raise AssertionError(f"autocast gave the core {qkv.dtype} qkv, not bf16")
+                truth = window_attention_reference(qkv.float(), bias, pos.float(), scale, odd)
+                plain = window_attention_reference(qkv, bias, pos, scale, odd)
+                got, again = window_attention(*call), window_attention(*call)
+                tests.assert_within_bf16_rounding(got, plain, truth)
+                f32 = (qkv.float(), bias.float(), pos.float(), scale.float(), odd)
+                got32, again32 = window_attention(*f32), window_attention(*f32)
+                gap32 = tests.gap(got32, window_attention_reference(*f32))
+                if gap32 > 1e-5:
+                    raise AssertionError(f"{key(call)}: float32 gap {gap32} > 1e-5")
+                if not (torch.equal(got, again) and torch.equal(got32, again32)):
+                    raise AssertionError(f"{key(call)}: two launches differ")
+                with torch.autocast("cuda", dtype=torch.bfloat16):
+                    library_ms = time_ms(lambda: tests.sdpa_core(*call), iters=10, warmup=2)
+                blocks[key(call)] = {
+                    "ms": time_ms(lambda: window_attention(*call), iters=50),
+                    "float32_ms": time_ms(lambda: window_attention(*f32), iters=20),
+                    "plain_ms": time_ms(lambda: window_attention_reference(*call), iters=10,
+                                        warmup=2),
+                    "library_ms": library_ms,
+                    "bytes": n_bytes(call),
+                    "bf16_gap": tests.gap(got, truth), "plain_bf16_gap": tests.gap(plain, truth),
+                    "float32_gap": gap32}
+                del truth, plain, got, again, f32, got32, again32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = plain_tf32
+    for b in blocks.values():
+        b["bound_ms"], _ = bound_ms(b["bytes"], 0)
+        b["bound_share"] = b["bound_ms"] / b["ms"]
+    per_block = [blocks[key(call)] for call in calls]
+    total = {name: sum(b[name] for b in per_block) for name in ("ms", "plain_ms", "library_ms")}
+    bound = bound_ms(sum(n_bytes(call) for call in calls), 0)[0]
+    entry = {**total, "bf16_gap_max": max(b["bf16_gap"] for b in blocks.values()),
+             "float32_gap_max": max(b["float32_gap"] for b in blocks.values()),
+             "bound_ms": bound, "bound_by": "bytes",
+             "bound_share": bound / total["ms"],
+             "timed_work": "one Swin-B SDNet forward's 24 cores at batch 32, 512x512, bf16: "
+                           "each block's ms (mean of 50, warm L2; plain and library of 10) "
+                           "weighed by its count; library: the SDPA path of "
+                           "tests/test_torch_port_swin_kernel.py::sdpa_core under autocast",
+             "blocks": blocks, "block_counts": {k: sum(key(c) == k for c in calls)
+                                               for k in blocks},
+             "clocks": clocks}
+    return entry, counts
+
+
+def phase_kernels(card: str) -> tuple:
+    """Bit-exactness and timings; returns the per-kernel measurements and
+    the Swin forward's launch counts."""
     import numpy as np
     import torch
 
@@ -520,6 +653,9 @@ def phase_kernels(card: str) -> dict:
         "sigmoid_nms_topk_rowmax": {**topk_entry("onehot"), "us_per_round": us_per_round,
                                     "active_clusters": clusters},
     }
+    # the Swin core's kernel: not bit-exact (float arithmetic in another
+    # order), held to the card test's bars on one forward's inputs
+    result["swin_window_attention"], swin_counts = swin_window_attention_entry()
     emit({"phase": "kernels", "card": card, "bit_exact": True, "cases": list(cases),
           "timed_work": "one served batch of 32 at 512x512: anchors (32,2,128,128) + "
                         "parts (32,1,128,128), N(0, 3) logits; saturated_*: the same "
@@ -527,7 +663,7 @@ def phase_kernels(card: str) -> dict:
                         "mean of 50",
           "topk_partial_ms_is": "torch.topk over the suppressed planes only (partial)",
           "empty_kernel_ms": empty_ms, "clocks": clocks, **result})
-    return result
+    return result, swin_counts
 
 
 def _import_checkout(parent: Path):
@@ -3375,6 +3511,32 @@ def phase_benchmark(card: str, forward_ms: dict) -> dict:
     return total
 
 
+def emit_kernel_table(kernels: dict, by_path: dict) -> None:
+    """The `{"kernels": [...]}` line: each kernel's source, the TPU kernel
+    it replaces (None: no TPU counterpart), its launches by main path and
+    the kernels phase's measurements."""
+    sources = {
+        "sigmoid_nms": ("structuredetector_tpu_torch/csrc/sigmoid_nms.cu",
+                        "structuredetector_tpu/ops/pallas/nms.py:35"),
+        "sigmoid_nms_topk": ("structuredetector_tpu_torch/csrc/sigmoid_nms_topk.cu",
+                             "structuredetector_tpu/ops/pallas/topk.py:62"),
+        "sigmoid_nms_topk_rowmax": ("structuredetector_tpu_torch/csrc/sigmoid_nms_topk_rowmax.cu",
+                                    "structuredetector_tpu/ops/pallas/topk.py:116"),
+        "swin_window_attention": ("structuredetector_tpu_torch/csrc/swin_window_attention.cu",
+                                  None),
+    }
+    extra = ("topk_partial_ms", "ms_by_k_64_planes", "ms_runs", "phases_ms",
+             "copy_same_bytes_ms", "saturated_ms", "saturated_ms_runs", "saturated_bound_share",
+             "us_per_round", "active_clusters", "blocks", "block_counts", "clocks", "timed_work")
+    emit({"kernels": [
+        {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+         "launches": sum(counts.get(name, 0) for counts in by_path.values()),
+         "launches_by_path": {path: counts.get(name, 0) for path, counts in by_path.items()},
+         **{k: v for k, v in kernels[name].items() if k not in extra}}
+        for name, (src, replaces) in sources.items()
+    ]})
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--load_model", type=Path, default=None,
@@ -3423,7 +3585,7 @@ def main(argv=None) -> int:
           "cuda": torch.version.cuda, "kind": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count()})
     library = phase_build()
-    kernels = phase_kernels(card)
+    kernels, swin_counts = phase_kernels(card)
     if args.parent is not None:
         phase_parent(card, args.parent.resolve())
     forward_ms = {}
@@ -3450,24 +3612,8 @@ def main(argv=None) -> int:
     forward_ms["resnet50 bf16"] = variant_ms["resnet50"]
     by_path["benchmark"] = phase_benchmark(card, forward_ms)
 
-    sources = {
-        "sigmoid_nms": ("structuredetector_tpu_torch/csrc/sigmoid_nms.cu",
-                        "structuredetector_tpu/ops/pallas/nms.py:35"),
-        "sigmoid_nms_topk": ("structuredetector_tpu_torch/csrc/sigmoid_nms_topk.cu",
-                             "structuredetector_tpu/ops/pallas/topk.py:62"),
-        "sigmoid_nms_topk_rowmax": ("structuredetector_tpu_torch/csrc/sigmoid_nms_topk_rowmax.cu",
-                                    "structuredetector_tpu/ops/pallas/topk.py:116"),
-    }
-    extra = ("topk_partial_ms", "ms_by_k_64_planes", "ms_runs", "phases_ms",
-             "copy_same_bytes_ms", "saturated_ms", "saturated_ms_runs", "saturated_bound_share",
-             "us_per_round", "active_clusters")
-    emit({"kernels": [
-        {"name": name, "route": "cuda", "source": src, "replaces": replaces,
-         "launches": sum(counts[name] for counts in by_path.values()),
-         "launches_by_path": {path: counts[name] for path, counts in by_path.items()},
-         **{k: v for k, v in kernels[name].items() if k not in extra}}
-        for name, (src, replaces) in sources.items()
-    ]})
+    by_path["swin_forward"] = swin_counts
+    emit_kernel_table(kernels, by_path)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -27,10 +27,12 @@ The port's order differs from torchvision's where the arithmetic allows:
 qkv runs on the (B, H, W, C) map before padding and partition, the
 padded tokens then taking the qkv bias (torchvision's Linear of zeros),
 and proj runs after the windows are put back and cropped. So the span
-`sd.swin.attn` holds the attention core alone: padding, shift,
-partition, the position bias, the attention, reverse and crop. The core
-is `F.scaled_dot_product_attention` with the bias and the shift mask as
-one additive tensor.
+`sd.swin.attn` holds the attention core alone: the position bias, then
+padding, shift, partition, the attention, reverse and crop in one call
+of `ops.kernels.window_attention`: on the card one launch of a
+hand-written kernel that reads q, k and v from the qkv Linear's output
+and writes each token's output in place, with the shift mask recomputed
+from each window's position; on the CPU its plain PyTorch version.
 
 Stochastic depth is not implemented (rate 0): the encoder trains as
 torchvision's with `stochastic_depth_prob=0`.
@@ -38,13 +40,13 @@ torchvision's with `stochastic_depth_prob=0`.
 
 from __future__ import annotations
 
-import math
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.kernels.swin_window_attention import window_attention
 from ..tracing import SWIN, span
 
 
@@ -59,9 +61,6 @@ class SwinSpec(NamedTuple):
 
 # torchvision `swin_v2_b`: 87,930,848 parameters with its classifier
 ARCHS = {"swin_v2_b": SwinSpec(128, (2, 2, 18, 2), (4, 8, 16, 32))}
-
-LOGIT_SCALE_MAX = math.log(100.0)
-MASK_VALUE = -100.0
 
 
 class Permute(nn.Module):
@@ -89,32 +88,6 @@ def relative_position_index(window: int) -> torch.Tensor:
     return (rel[..., 0] * (2 * window - 1) + rel[..., 1]).flatten()
 
 
-def shift_mask(hp: int, wp: int, window: int, shift: Tuple[int, int],
-               device) -> torch.Tensor:
-    """(nW, N, N) additive mask of a shifted block on a padded (hp, wp)
-    map: -100 between two tokens of a window that came from different
-    regions of the rolled map, else 0 (torchvision's region ids)."""
-
-    def regions(n, s):
-        i = torch.arange(n, device=device)
-        if s == 0:
-            return torch.zeros_like(i)
-        return (i >= n - window).long() + (i >= n - s).long()
-
-    ids = regions(hp, shift[0])[:, None] * 3 + regions(wp, shift[1])[None, :]
-    ids = ids.view(hp // window, window, wp // window, window).transpose(1, 2)
-    ids = ids.reshape(-1, window * window)
-    differ = ids[:, None, :] != ids[:, :, None]
-    return torch.zeros(differ.shape, device=device).masked_fill_(differ, MASK_VALUE)
-
-
-def block_shift(hp: int, wp: int, window: int, odd: bool) -> Tuple[int, int]:
-    """The shift of a block on a padded (hp, wp) map: half a window for odd
-    blocks, none along a dimension whose padded size is the window."""
-    s = window // 2 if odd else 0
-    return (s if hp > window else 0, s if wp > window else 0)
-
-
 class ShiftedWindowAttentionV2(nn.Module):
     def __init__(self, dim: int, heads: int, window: int, odd: bool):
         super().__init__()
@@ -139,54 +112,22 @@ class ShiftedWindowAttentionV2(nn.Module):
         """(heads, N, N): 16 sigmoid of the cpb MLP's table, by relative index."""
         n = self.window * self.window
         table = self.cpb_mlp(self.relative_coords_table).view(-1, self.heads)
-        bias = table[self.relative_position_index].view(n, n, self.heads).permute(2, 0, 1)
-        return 16 * torch.sigmoid(bias)
+        # indexing (not index_select): its backward is deterministic on the card
+        bias = table.t()[:, self.relative_position_index]
+        return 16 * torch.sigmoid(bias.view(self.heads, n, n))
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
-        """x: (B, H, W, C); `mask`: the stage's `shift_mask` for an odd
-        block (None for an even one)."""
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x: (B, H, W, C)."""
         bias = self.qkv_bias()
         qkv = F.linear(x, self.qkv.weight, bias)
         with span("sd.swin.attn"):
-            y = self.core(qkv, bias, mask)
+            y = self.core(qkv, bias)
         return self.proj(y)
 
-    def core(self, qkv: torch.Tensor, bias: torch.Tensor,
-             mask: Optional[torch.Tensor]) -> torch.Tensor:
+    def core(self, qkv: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
         """(B, H, W, 3C) -> (B, H, W, C): pad, shift, partition, attend,
         reverse, crop."""
-        b, h, w, _ = qkv.shape
-        ws, heads, c = self.window, self.heads, self.dim
-        pad_b, pad_r = (-h) % ws, (-w) % ws
-        if pad_b or pad_r:
-            # a padded token's q, k, v are the Linear of zeros: its bias
-            qkv = F.pad(qkv, (0, 0, 0, pad_r, 0, pad_b))
-            qkv[:, h:] = bias
-            qkv[:, :, w:] = bias
-        hp, wp = h + pad_b, w + pad_r
-        shift = block_shift(hp, wp, ws, self.odd)
-        if any(shift):
-            qkv = torch.roll(qkv, shifts=(-shift[0], -shift[1]), dims=(1, 2))
-        nh, nw, n = hp // ws, wp // ws, ws * ws
-        qkv = qkv.view(b, nh, ws, nw, ws, 3, heads, c // heads)
-        qkv = qkv.permute(5, 0, 1, 3, 6, 2, 4, 7).reshape(3, b * nh * nw, heads, n, c // heads)
-        scale = torch.clamp(self.logit_scale, max=LOGIT_SCALE_MAX).exp()
-        q = F.normalize(qkv[0], dim=-1) * scale
-        k = F.normalize(qkv[1], dim=-1)
-        attn_bias = self.position_bias().unsqueeze(0)
-        if any(shift):
-            attn_bias = attn_bias + mask.unsqueeze(1)
-        # in the compute dtype before it is spread over the batch's windows
-        attn_bias = attn_bias.to(qkv.dtype)
-        if any(shift):
-            attn_bias = attn_bias.expand(b, -1, -1, -1, -1).reshape(b * nh * nw, heads, n, n)
-        y = F.scaled_dot_product_attention(q, k, qkv[2], attn_mask=attn_bias, scale=1.0)
-        y = y.view(b, nh, nw, heads, ws, ws, c // heads).permute(0, 1, 4, 2, 5, 3, 6)
-        y = y.reshape(b, hp, wp, c)
-        if any(shift):
-            y = torch.roll(y, shifts=shift, dims=(1, 2))
-        SWIN.attended(b * nh * nw, b * (hp * wp - h * w))
-        return y[:, :h, :w]
+        return window_attention(qkv, bias, self.position_bias(), self.logit_scale, self.odd)
 
 
 class SwinBlockV2(nn.Module):
@@ -199,8 +140,8 @@ class SwinBlockV2(nn.Module):
         self.mlp = nn.Sequential(nn.Linear(dim, mlp_ratio * dim), nn.GELU(), nn.Identity(),
                                  nn.Linear(mlp_ratio * dim, dim), nn.Identity())
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
-        x = x + self.norm1(self.attn(x, mask))
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + self.norm1(self.attn(x))
         with span("sd.swin.mlp"):
             return x + self.norm2(self.mlp(x))
 
@@ -244,15 +185,11 @@ class SwinV2Encoder(nn.Module):
         SWIN.forwards += 1
         with span("sd.swin.embed"):
             x = self.features[0](x)
-        ws, outs = self.spec.window, []
+        outs = []
         for i, norm in enumerate(self.norms):
             if i > 0:
                 x = self.features[2 * i](x)
-            h, w = x.shape[1:3]
-            hp, wp = h + (-h) % ws, w + (-w) % ws
-            shift = block_shift(hp, wp, ws, odd=True)
-            mask = shift_mask(hp, wp, ws, shift, x.device) if any(shift) else None
             for block in self.features[2 * i + 1]:
-                x = block(x, mask if block.attn.odd else None)
+                x = block(x)
             outs.append(norm(x).permute(0, 3, 1, 2))
         return tuple(outs)

@@ -5,9 +5,10 @@ Each `csrc/<name>.cu` exposes plain C functions (no PyTorch headers), so
 `utils.build_dir()`: the package's `_build/` (listed in `.gitignore`),
 or the directory of `--compile_cache`. The hash covers the source,
 the shared headers `csrc/*.cuh` and the flags, so an edited source or
-header never loads a stale library. All
-sources compile in parallel, one `nvcc` each, on the first call of
-`load`; later calls in the process return the loaded library.
+header never loads a stale library. `load(name)` compiles its own
+source on first use, so a model pays only for the kernels it runs;
+later calls in the process return the loaded library. `build()`
+compiles every source at once, one `nvcc` each, in parallel.
 
 Nothing is built at import time: the CPU tests import every module of
 the package on a host without `nvcc`.
@@ -23,12 +24,12 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Iterable
 
 from ...utils import build_dir
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
-SOURCES = ("sigmoid_nms", "sigmoid_nms_topk", "sigmoid_nms_topk_rowmax")
+SOURCES = ("sigmoid_nms", "sigmoid_nms_topk", "sigmoid_nms_topk_rowmax", "swin_window_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -49,6 +50,10 @@ _SIGNATURES = {
         "sdnet_sigmoid_nms_topk_rowmax": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
         + [ctypes.c_void_p],
         "sdnet_rowmax_active_clusters": [ctypes.c_int] * 3,
+    },
+    "swin_window_attention": {
+        "sdnet_swin_window_attention": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+        + [ctypes.c_void_p],
     },
 }
 
@@ -77,11 +82,11 @@ def _target(name: str) -> Path:
     return build_dir() / f"{name}-{digest}.so"
 
 
-def build_all() -> float:
-    """Compile every source whose library is missing, all in parallel.
+def build(names: Iterable[str] = SOURCES) -> float:
+    """Compile each of `names` whose library is missing, all in parallel.
     Returns the wall seconds spent; raises on any compiler error."""
     t0 = time.perf_counter()
-    todo = [n for n in SOURCES if not _target(n).exists()]
+    todo = [n for n in names if not _target(n).exists()]
     if not todo:
         return 0.0
     nvcc = _nvcc()
@@ -110,7 +115,7 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            build_all()
+            build((name,))
             lib = ctypes.CDLL(str(_target(name)))
             for fn, argtypes in _SIGNATURES[name].items():
                 getattr(lib, fn).argtypes = argtypes

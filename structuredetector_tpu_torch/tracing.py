@@ -150,8 +150,9 @@ def train_graph_counters() -> dict:
 
 
 class SwinCounter:
-    """The Swin encoder's forwards, windows and padded tokens, counted by
-    `models.swin` in every process, profiled or not."""
+    """The Swin encoder's forwards, counted by `models.swin`, and its
+    attention cores' windows and padded tokens, counted by
+    `ops.kernels.window_attention`, in every process, profiled or not."""
 
     def __init__(self):
         self.forwards = 0

@@ -152,7 +152,7 @@ def test_launch_counts_name_every_kernel_and_reset():
     assert launch_counts()["sigmoid_nms_topk_rowmax"] >= 3
     reset_launch_counts()
     assert launch_counts() == {"sigmoid_nms": 0, "sigmoid_nms_topk": 0,
-                               "sigmoid_nms_topk_rowmax": 0}
+                               "sigmoid_nms_topk_rowmax": 0, "swin_window_attention": 0}
 
 
 def test_sigmoid_nms_on_ragged_tiles_matches_pallas(rng):
