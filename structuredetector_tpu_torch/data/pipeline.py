@@ -34,6 +34,7 @@ import torch
 from ..annotations import ImageAnnotation, clip_annotation
 from ..parallel.multihost import process_slice
 from ..tracing import span
+from ..utils import to_device
 from . import native
 
 
@@ -295,16 +296,7 @@ def choose_batch_fetch(config, dataset, transform):
 def keypoints_to_device(kp: FlatKeypoints, device) -> Dict[str, torch.Tensor]:
     """A batch's `FlatKeypoints` -> dict of tensors on `device`, the form
     the train and eval steps take."""
-    return {f: _to_device(getattr(kp, f), device) for f in FlatKeypoints._fields}
-
-
-def _to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:
-    t = torch.from_numpy(np.ascontiguousarray(array))
-    if device.type == "cuda":
-        # pinned + non_blocking: the copy queues on the stream behind the
-        # running step instead of blocking this thread on it
-        return t.pin_memory().to(device, non_blocking=True)
-    return t
+    return {f: to_device(getattr(kp, f), device) for f in FlatKeypoints._fields}
 
 
 def device_prefetch(iterator, device, size: int = 2):
@@ -314,17 +306,17 @@ def device_prefetch(iterator, device, size: int = 2):
     batch N+1 moves while the card runs step N."""
     device = torch.device(device)
 
-    def to_device(batch):
+    def stage(batch):
         with span("sd.loader.h2d"):
             out = dict(batch)
-            out["image"] = _to_device(batch["image"], device)
+            out["image"] = to_device(batch["image"], device)
             if "keypoints" in batch:
                 out["keypoints"] = keypoints_to_device(batch["keypoints"], device)
             return out
 
     staged: collections.deque = collections.deque()
     for batch in iterator:
-        staged.append(to_device(batch))
+        staged.append(stage(batch))
         if len(staged) >= size:
             yield staged.popleft()
     while staged:

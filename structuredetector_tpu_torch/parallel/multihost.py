@@ -21,6 +21,8 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
+from ..utils import to_device
+
 
 def process_slice(indices: List[int], process_index: int, process_count: int):
     """This process's contiguous slice of one global index batch, or
@@ -39,9 +41,9 @@ def global_batch_arrays(mesh, images: np.ndarray, kp) -> Tuple[torch.Tensor,
     """A rank's slice of the global batch on its device: the train step's
     (images, keypoint dict) inputs. `kp` is a `FlatKeypoints` or a dict of
     arrays."""
-    # imported here: the Loader imports `process_slice` from this module
-    from ..data.pipeline import FlatKeypoints, _to_device, keypoints_to_device
+    # imported here: `data.pipeline` imports `process_slice` from this module
+    from ..data.pipeline import FlatKeypoints, keypoints_to_device
 
     if not isinstance(kp, FlatKeypoints):
         kp = FlatKeypoints(**kp)
-    return _to_device(np.asarray(images), mesh.device), keypoints_to_device(kp, mesh.device)
+    return to_device(np.asarray(images), mesh.device), keypoints_to_device(kp, mesh.device)

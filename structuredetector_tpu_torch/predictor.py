@@ -32,7 +32,7 @@ from .models.weights import load_weights
 from .ops.decode import decode_feature_maps_planes, split_head_output
 from .ops.device_augment import normalize_images
 from .tracing import span
-from .utils import resolve_device
+from .utils import resolve_device, to_device
 
 
 class PreparedImage(NamedTuple):
@@ -131,17 +131,109 @@ def _prepare(images: Sequence, transform) -> Tuple[list, List[np.ndarray]]:
         return sources, arrays
 
 
-def _stack_to_device(arrays, device: torch.device) -> torch.Tensor:
-    with span("sd.predict.h2d"):
-        batch = torch.from_numpy(arrays if isinstance(arrays, np.ndarray) else np.stack(arrays))
-        if device.type == "cuda":
-            # pinned + non_blocking: the copy queues behind earlier work
-            # on the stream instead of blocking this thread on it
-            return batch.pin_memory().to(device, non_blocking=True)
-        return batch
+class _BatchedInference:
+    """The batched-inference surface both predictors share: host prep,
+    staging, forward and decode in chunks, then fetch and rescale.
+
+    A subclass sets `config`, `device`, `decoder` (`fetch_and_materialize`
+    and `decode_arrays`), `transform` (one RGB image -> network feed),
+    `_uint8`, `_normalized` and `forward`. `batch_size` None runs a batch
+    as one chunk; a static `batch_size` runs chunks of it, the last padded
+    with copies of its last image. `fast_path` decodes through kernel B."""
+
+    batch_size: Optional[int] = None
+    fast_path = False
+
+    @property
+    def feed_uint8(self) -> bool:
+        """True when the network input is raw uint8 RGB (normalization
+        runs on the device)."""
+        return self._uint8
+
+    @property
+    def feed_normalize(self) -> bool:
+        """True when the host ImageNet-normalizes the float32 feed."""
+        return not self._uint8 and not self._normalized
+
+    def to_device(self, arrays) -> torch.Tensor:
+        """Stack (H, W, 3) host feeds into one batch on the device; a
+        (B, H, W, 3) array (a collated batch) goes as it is."""
+        with span("sd.predict.h2d"):
+            return to_device(arrays, self.device)
+
+    @torch.inference_mode()
+    def decode(self, head: torch.Tensor, fast_path: Optional[bool] = None):
+        """Fixed-shape device decode of a head output -> detection dict."""
+        cfg = self.config
+        outputs = split_head_output(head, cfg.n_labels, cfg.n_parts)
+        if self.fast_path if fast_path is None else fast_path:
+            return decode_feature_maps_planes(
+                outputs,
+                max_objects=cfg.max_objects,
+                max_parts=cfg.max_parts,
+                conf_thresh=cfg.conf_threshold,
+                dist_thresh=cfg.decoder_dist_thresh,
+            )
+        return self.decoder.decode_arrays(
+            outputs, cfg.conf_threshold, cfg.decoder_dist_thresh
+        )
+
+    def predict_image(self, image) -> ImageAnnotation:
+        """One image -> annotation in original pixel coordinates."""
+        return self.predict_batch([image])[0]
+
+    def predict_batch(self, images: Sequence) -> List[ImageAnnotation]:
+        return self.predict_batch_collect(self.predict_batch_submit(images))
+
+    def predict_batch_submit(self, images: Sequence) -> Optional[tuple]:
+        """Device half of `predict_batch`: prep + transfer + forward +
+        fixed-shape decode of every chunk, queued on the device without
+        waiting for results. Returns a handle for `predict_batch_collect`;
+        serving's depth-2 pipeline prepares batch N+1 while batch N runs."""
+        if not images:
+            return None
+        with span("sd.predict.submit"):
+            sources, arrays = _prepare(images, self.transform)
+            return self._submit(arrays, self.batch_size), sources
+
+    def predict_batch_collect(self, handle) -> List[ImageAnnotation]:
+        """Host half of `predict_batch`: fetch the decode tensors of a
+        `predict_batch_submit` handle and build the annotations."""
+        if handle is None:
+            return []
+        chunks, sources = handle
+        with span("sd.predict.collect"):
+            return _rescale(self._collect(chunks, len(sources)), sources, self.config)
+
+    def _submit(self, arrays: List[np.ndarray], batch_size: Optional[int]) -> list:
+        """Stage, forward and decode `arrays` in chunks of `batch_size`
+        (None: one chunk of all) -> [(decode dict, head (h, w))]."""
+        step = batch_size or len(arrays)
+        chunks = []
+        for start in range(0, len(arrays), step):
+            chunk = arrays[start : start + step] if len(arrays) > step else arrays
+            if len(chunk) < step:  # a static batch's last chunk
+                chunk = chunk + [chunk[-1]] * (step - len(chunk))
+            batch = self.to_device(chunk)
+            with span("sd.predict.forward"):
+                head = self.forward(batch)
+            with span("sd.predict.decode"):
+                chunks.append((self.decode(head), tuple(head.shape[2:])))
+        return chunks
+
+    def _collect(self, chunks: list, n: int) -> List[ImageAnnotation]:
+        """Fetch each chunk of `_submit` -> the first `n` annotations, in
+        network-input pixels (only the last chunk is padded)."""
+        annotations: List[ImageAnnotation] = []
+        for dec, out_hw in chunks:
+            annotations += self.decoder.fetch_and_materialize(
+                dec, out_hw, self.config.conf_threshold
+            )[0]
+        del annotations[n:]
+        return annotations
 
 
-class Predictor:
+class Predictor(_BatchedInference):
     def __init__(
         self,
         config,
@@ -170,21 +262,11 @@ class Predictor:
             load_weights(model, path)
         self.model = model.to(self.device)
         self.transform = PredictionTransformation(config, device_normalize=device_normalize)
+        self._uint8, self._normalized = bool(device_normalize), False
         self.decoder = Decoder(config)
         if fast_path is None:
             fast_path = self.device.type == "cuda"
         self.fast_path = bool(fast_path)
-
-    @property
-    def feed_uint8(self) -> bool:
-        """True when the network input is raw uint8 RGB (normalization
-        runs on the device)."""
-        return bool(self.transform.device_normalize)
-
-    @property
-    def feed_normalize(self) -> bool:
-        """True when the host ImageNet-normalizes the float32 feed."""
-        return not self.feed_uint8
 
     @torch.inference_mode()
     def forward(self, batch: torch.Tensor) -> torch.Tensor:
@@ -193,68 +275,6 @@ class Predictor:
         if self.feed_uint8:
             batch = normalize_images(batch.float() / 255.0)
         return self.model(batch.permute(0, 3, 1, 2).contiguous(), raw_output=True)
-
-    @torch.inference_mode()
-    def decode(self, head: torch.Tensor, fast_path: Optional[bool] = None):
-        """Fixed-shape device decode of a head output -> detection dict."""
-        cfg = self.config
-        outputs = split_head_output(head, cfg.n_labels, cfg.n_parts)
-        if fast_path is None:
-            fast_path = self.fast_path
-        if fast_path:
-            return decode_feature_maps_planes(
-                outputs,
-                max_objects=cfg.max_objects,
-                max_parts=cfg.max_parts,
-                conf_thresh=cfg.conf_threshold,
-                dist_thresh=cfg.decoder_dist_thresh,
-            )
-        return self.decoder.decode_arrays(
-            outputs, cfg.conf_threshold, cfg.decoder_dist_thresh
-        )
-
-    def to_device(self, arrays) -> torch.Tensor:
-        """Stack (H, W, 3) host feeds into one batch on the device; a
-        (B, H, W, 3) array (a collated batch) goes as it is."""
-        return _stack_to_device(arrays, self.device)
-
-    def _device_decode(self, arrays: List[np.ndarray]):
-        batch = self.to_device(arrays)
-        with span("sd.predict.forward"):
-            head = self.forward(batch)
-        with span("sd.predict.decode"):
-            return self.decode(head), tuple(head.shape[2:])
-
-    def predict_image(self, image) -> ImageAnnotation:
-        """One image -> annotation in original pixel coordinates."""
-        return self.predict_batch([image])[0]
-
-    def predict_batch(self, images: Sequence) -> List[ImageAnnotation]:
-        return self.predict_batch_collect(self.predict_batch_submit(images))
-
-    def predict_batch_submit(self, images: Sequence) -> Optional[tuple]:
-        """Device half of `predict_batch`: prep + transfer + forward +
-        fixed-shape decode, queued on the device without waiting for
-        results. Returns a handle for `predict_batch_collect`; serving's
-        depth-2 pipeline prepares batch N+1 while batch N runs."""
-        if not images:
-            return None
-        with span("sd.predict.submit"):
-            sources, arrays = _prepare(images, self.transform)
-            dec, out_hw = self._device_decode(arrays)
-        return dec, out_hw, sources
-
-    def predict_batch_collect(self, handle) -> List[ImageAnnotation]:
-        """Host half of `predict_batch`: fetch the decode tensors of a
-        `predict_batch_submit` handle and build the annotations."""
-        if handle is None:
-            return []
-        dec, out_hw, sources = handle
-        with span("sd.predict.collect"):
-            annotations, _, _ = self.decoder.fetch_and_materialize(
-                dec, out_hw, self.config.conf_threshold
-            )
-            return _rescale(annotations, sources, self.config)
 
     def predict_tiled(
         self,
@@ -265,27 +285,19 @@ class Predictor:
     ) -> ImageAnnotation:
         """Sliding-window detection for images larger than the network
         input: crop network-sized tiles on a `tile_grid`, run them
-        through the same forward + decode as `predict_batch`, shift
-        detections into global pixel coordinates and merge cross-tile
-        duplicates (`merge_tiled_objects`, higher anchor score wins
-        within `dedup_radius`, default `dist_threshold * min(tile
+        through the same chunked forward + decode as `predict_batch`,
+        shift detections into global pixel coordinates and merge
+        cross-tile duplicates (`merge_tiled_objects`, higher anchor score
+        wins within `dedup_radius`, default `dist_threshold * min(tile
         size)`). Tile batches are padded to a fixed `batch_size`."""
         image = _as_rgb(image)
         tw, th = self.config.width, self.config.height
         corners = tile_grid(image.width, image.height, tw, th, overlap)
-        tiles = [image.crop((x, y, x + tw, y + th)) for x, y in corners]
-
+        tiles = [self.transform(image.crop((x, y, x + tw, y + th))) for x, y in corners]
+        annotations = self._collect(self._submit(tiles, batch_size), len(tiles))
         objects: List[Object] = []
-        for start in range(0, len(tiles), batch_size):
-            chunk = tiles[start : start + batch_size]
-            n = len(chunk)
-            chunk = chunk + [chunk[-1]] * (batch_size - n)
-            dec, out_hw = self._device_decode([self.transform(t) for t in chunk])
-            anns, _, _ = self.decoder.fetch_and_materialize(
-                dec, out_hw, self.config.conf_threshold
-            )
-            for ann, (x, y) in zip(anns[:n], corners[start : start + n]):
-                objects.extend(_shift_object(o, x, y) for o in ann.objects)
+        for ann, (x, y) in zip(annotations, corners):
+            objects.extend(_shift_object(o, x, y) for o in ann.objects)
 
         # an image smaller than the tile on an axis gets black crop
         # padding, where anchors can't be real objects; on a full-sized
@@ -322,7 +334,7 @@ def _rescale(annotations, sources, config) -> List[ImageAnnotation]:
     return annotations
 
 
-class ExportPredictor:
+class ExportPredictor(_BatchedInference):
     """`Predictor`'s surface over a `.sdz` artifact (`export.load_exported`,
     JAX `predictor.py:341-455`): no model code or checkpoint, the decode
     parameters from the artifact's metadata. It gives `serve` what it
@@ -352,18 +364,8 @@ class ExportPredictor:
         self._normalized = bool(meta.get("normalized"))
         self._host_normalize = Normalize()
 
-    @property
-    def feed_uint8(self) -> bool:
-        """True when the artifact's input is raw uint8 RGB."""
-        return self._uint8
-
-    @property
-    def feed_normalize(self) -> bool:
-        """True when the host must ImageNet-normalize the feed: the
-        artifact was exported without --norm / --uint8_input."""
-        return not self._uint8 and not self._normalized
-
-    def _transform(self, image) -> np.ndarray:
+    def transform(self, image) -> np.ndarray:
+        """One RGB image -> the artifact's (H, W, 3) feed."""
         from PIL import Image
 
         resized = image.resize((self.config.width, self.config.height), Image.BILINEAR)
@@ -373,57 +375,7 @@ class ExportPredictor:
             return np.asarray(resized, np.float32)
         return self._host_normalize(resized)
 
-    def to_device(self, arrays) -> torch.Tensor:
-        """Stack (H, W, 3) host feeds into one batch on the device."""
-        return _stack_to_device(arrays, self.device)
-
     def forward(self, batch: torch.Tensor) -> torch.Tensor:
         """(B, H, W, 3) feed on the device -> the program's (B, M+N+4,
         H/4, W/4) output: suppressed heatmaps, raw regression maps."""
         return self._call(batch)
-
-    @torch.inference_mode()
-    def decode(self, head: torch.Tensor):
-        cfg = self.config
-        outputs = split_head_output(head, cfg.n_labels, cfg.n_parts)
-        return self.decoder.decode_arrays(outputs, cfg.conf_threshold,
-                                          cfg.decoder_dist_thresh)
-
-    def predict_image(self, image) -> ImageAnnotation:
-        return self.predict_batch([image])[0]
-
-    def predict_batch(self, images: Sequence) -> List[ImageAnnotation]:
-        return self.predict_batch_collect(self.predict_batch_submit(images))
-
-    def predict_batch_submit(self, images: Sequence) -> Optional[tuple]:
-        """Device half: every chunk queued on the device, nothing fetched."""
-        if not images:
-            return None
-        with span("sd.predict.submit"):
-            sources, arrays = _prepare(images, self._transform)
-            step = self.batch_size or len(arrays)
-            chunks = []
-            for start in range(0, len(arrays), step):
-                chunk = arrays[start : start + step]
-                n = len(chunk)
-                chunk = chunk + [chunk[-1]] * (step - n)  # pad a static batch
-                batch = self.to_device(chunk)
-                with span("sd.predict.forward"):
-                    head = self.forward(batch)
-                with span("sd.predict.decode"):
-                    chunks.append((self.decode(head), tuple(head.shape[2:]), n))
-        return chunks, sources
-
-    def predict_batch_collect(self, handle) -> List[ImageAnnotation]:
-        """Host half: fetch each chunk's decode tensors and build the
-        annotations."""
-        if handle is None:
-            return []
-        chunks, sources = handle
-        annotations: List[ImageAnnotation] = []
-        with span("sd.predict.collect"):
-            for dec, out_hw, n in chunks:
-                anns, _, _ = self.decoder.fetch_and_materialize(dec, out_hw,
-                                                                self.config.conf_threshold)
-                annotations.extend(anns[:n])
-            return _rescale(annotations, sources, self.config)

@@ -1,6 +1,7 @@
-"""Device selection for the port's entry points, the directory its
-native builds live in, and the host helpers of JAX `utils.py`
-(reference `utils.py:311-338`)."""
+"""Device selection for the port's entry points, the one host->device
+stager of its batches (`to_device`), the directory its native builds
+live in, and the host helpers of JAX `utils.py` (reference
+`utils.py:311-338`)."""
 
 from __future__ import annotations
 
@@ -56,6 +57,19 @@ def resolve_device(device="cuda") -> torch.device:
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"the port runs on 'cuda' or 'cpu', not {device}")
     return device
+
+
+def to_device(arrays, device: torch.device) -> torch.Tensor:
+    """Host arrays -> one tensor on `device`: a sequence of same-shaped
+    arrays is stacked, one array is made contiguous. On CUDA the host
+    tensor is pinned and copied with `non_blocking=True`, so the copy
+    queues on the stream behind the running work instead of blocking
+    this thread on it; on the CPU the host tensor is returned."""
+    array = np.ascontiguousarray(arrays) if isinstance(arrays, np.ndarray) else np.stack(arrays)
+    tensor = torch.from_numpy(array)
+    if device.type == "cuda":
+        return tensor.pin_memory().to(device, non_blocking=True)
+    return tensor
 
 
 def progress(iterable, total: int, desc: str, every: int = 10, show: bool = True):

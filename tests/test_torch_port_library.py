@@ -310,6 +310,23 @@ def test_mkdir_if_needed_as_jax(tmp_path):
             fn(tmp_path / "missing" / name)
 
 
+def test_to_device_stacks_a_list_and_makes_an_array_contiguous():
+    """The port's one host->device stager on the CPU: a list of (H, W, 3)
+    feeds, their stacked array and a non-contiguous view of the same
+    values give equal contiguous tensors of the array's dtype."""
+    frames = [np.random.default_rng(i).integers(0, 255, (4, 6, 3), dtype=np.uint8)
+              for i in range(3)]
+    stacked = np.stack(frames)
+    strided = np.asfortranarray(stacked)
+    assert not strided.flags.c_contiguous
+    want = torch.from_numpy(stacked.copy())
+    cpu = torch.device("cpu")
+    for arrays in (frames, stacked, strided):
+        got = utils.to_device(arrays, cpu)
+        assert got.is_contiguous() and got.dtype == torch.uint8
+        assert torch.equal(got, want)
+
+
 # -- ops/tensor.py ------------------------------------------------------------
 
 

@@ -24,7 +24,9 @@ from torch.profiler import ProfilerActivity, profile
 from structuredetector_tpu_torch import tracing
 from structuredetector_tpu_torch.config import Config, config_from_args
 from structuredetector_tpu_torch.data.pipeline import Loader, device_prefetch
-from structuredetector_tpu_torch.predictor import Predictor, PreparedImage
+from structuredetector_tpu_torch.export import export_model
+from structuredetector_tpu_torch.models.network import init_model
+from structuredetector_tpu_torch.predictor import ExportPredictor, Predictor, PreparedImage
 from structuredetector_tpu_torch.train import trainer as trainer_mod
 from structuredetector_tpu_torch.train.trainer import Trainer
 from tests.test_torch_port_evaluate import _write_images
@@ -86,26 +88,50 @@ def _predictor_config():
     return cfg.finalize()
 
 
+@pytest.fixture(scope="module")
+def static_artifact(tmp_path_factory):
+    """A CPU artifact of batch 2 over a seeded model, uint8 input."""
+    cfg = _predictor_config()
+    path = tmp_path_factory.mktemp("trace_export") / "static.sdz"
+    return export_model(cfg, init_model(cfg).state_dict(), path, batch_size=2,
+                        fold_normalization=True, uint8_input=True, device="cpu")
+
+
 @pytest.mark.parametrize("prepared", [False, True])
-def test_predict_batch_spans_nest_on_one_thread(prepared):
-    pred = Predictor(_predictor_config(), device="cpu")
+@pytest.mark.parametrize("kind", ["checkpoint", "static_artifact"])
+def test_predict_batch_spans_nest_on_one_thread(kind, prepared, request):
+    """Three images: one chunk through `Predictor`, two through an artifact
+    of batch 2 (the last padded), each chunk's h2d, forward and decode
+    under the one submit, and its fetch and materialize under the one
+    collect."""
+    if kind == "checkpoint":
+        pred, chunks = Predictor(_predictor_config(), device="cpu"), 1
+    else:
+        pred = ExportPredictor(request.getfixturevalue("static_artifact"), device="cpu",
+                               max_objects=4, max_parts=8)
+        chunks = 2
     rng = np.random.default_rng(3)
-    frames = [rng.integers(0, 255, (64, 64, 3), dtype=np.uint8) for _ in range(2)]
+    frames = [rng.integers(0, 255, (64, 64, 3), dtype=np.uint8) for _ in range(3)]
     images = ([PreparedImage(f, (64, 64)) for f in frames] if prepared
               else [Image.fromarray(f) for f in frames])
     anns, spans, t0, t1 = traced(lambda: pred.predict_batch(images))
-    assert len(anns) == 2
+    assert len(anns) == 3
     assert_on_clock(spans, t0, t1)
     (submit,), (collect,) = spans["sd.predict.submit"], spans["sd.predict.collect"]
     assert submit[1] <= collect[0]
-    for child in ("sd.predict.prep", "sd.predict.h2d", "sd.predict.forward",
-                  "sd.predict.decode"):
-        (span,) = spans[child]
-        assert inside(span, submit), child
-    (fetch,) = spans["sd.predict.fetch"]
-    (materialize,) = spans["sd.predict.materialize"]
-    assert inside(fetch, collect) and inside(materialize, collect)
-    assert fetch[1] <= materialize[0]
+    (prep,) = spans["sd.predict.prep"]
+    assert inside(prep, submit)
+    h2d, forward, decode = (spans[f"sd.predict.{n}"] for n in ("h2d", "forward", "decode"))
+    assert len(h2d) == len(forward) == len(decode) == chunks
+    for stage in zip(h2d, forward, decode):
+        assert all(inside(span, submit) for span in stage)
+        assert prep[1] <= stage[0][0]
+        assert stage[0][1] <= stage[1][0] and stage[1][1] <= stage[2][0]
+    fetch, materialize = spans["sd.predict.fetch"], spans["sd.predict.materialize"]
+    assert len(fetch) == len(materialize) == chunks
+    for f, m in zip(fetch, materialize):
+        assert inside(f, collect) and inside(m, collect)
+        assert f[1] <= m[0]
 
 
 def test_gc_collections_are_spanned_and_counted():
